@@ -1,6 +1,11 @@
-"""The Receiver party (the large-set side that evaluates homomorphically) and
-the query/response containers — port of the PS path of
-``apsu_tpu/api/parties.py``.
+"""The two parties and the query/response containers — port of the
+unlabeled paths of ``apsu_tpu/api/parties.py``.
+
+The *Sender* holds the small set: it cuckoo-hashes its items, replaces them
+by slot-bound OPRF values, encrypts the source powers of its slot vectors and
+finally decrypts the response.  The *Receiver* holds the large preprocessed
+DB and evaluates the matching polynomials homomorphically (the
+Paterson–Stockmeyer path or the plain dot product, by parameter set).
 """
 
 from __future__ import annotations
@@ -12,13 +17,22 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from apsu_tpu_torch.core.bfv import Ciphertext, RelinKey
+from apsu_tpu_torch.core.bfv import BfvContext, Ciphertext, RelinKey
+from apsu_tpu_torch.core.mod32 import to_u32
 from apsu_tpu_torch.core.params import PSUParams
 from apsu_tpu_torch.db.measured_levels import defer_relin, powers_at_eval, query_level
 from apsu_tpu_torch.db.receiver_db import ReceiverDB
 from apsu_tpu_torch.device import synchronize
-from apsu_tpu_torch.engine.evaluator import compute_ps_power_tensors, eval_matching_polys_ps
+from apsu_tpu_torch.engine.evaluator import (
+    compute_power_tensor,
+    compute_ps_power_tensors,
+    eval_matching_polys,
+    eval_matching_polys_ps,
+)
 from apsu_tpu_torch.engine.powers import plan_query
+from apsu_tpu_torch.hash.cuckoo import CuckooTable, cuckoo_insert
+from apsu_tpu_torch.hash.encoding import felts_from_items
+from apsu_tpu_torch.hash.items import LocFuncs
 
 
 @dataclass
@@ -28,6 +42,10 @@ class QueryRequest:
     power_list: Tuple[int, ...]          # sorted source powers
     powers_data: torch.Tensor            # [P, B, 2, L, N] int32 ct data per power
     relin_key: Optional[torch.Tensor]    # [kdig, 2, Lqp, N] NTT mont or None
+    # the public seeds the uniform components above expand from (the wire
+    # then carries only c0 / ksk[:, 0] plus 32 bytes each)
+    a_seed: Optional[bytes] = None
+    rk_seed: Optional[bytes] = None
 
 
 @dataclass
@@ -38,20 +56,100 @@ class QueryResponse:
     eval_level: int
 
 
+def _default_rng(rng):
+    if rng is not None:
+        return rng
+    from apsu_tpu_torch.mpc.prg import CsRng
+
+    return CsRng()
+
+
+class Sender:
+    """Query side (small set)."""
+
+    def __init__(self, params: PSUParams, oprf, rng=None, device="cuda"):
+        """``oprf`` is an ``OprfBackend``.  ``rng`` draws every party secret
+        (secret key, relinearization-key seed and errors, query seed and
+        encryption noise), in the reference's order: a
+        ``numpy.random.Generator`` or a ``CsRng`` (the default, from OS
+        entropy)."""
+        self.params = params
+        self.oprf = oprf
+        self.bfv = BfvContext(params.seal_params, device=device)
+        self.rng = _default_rng(rng)
+        self.sk = self.bfv.gen_secret_key(self.rng)
+        self.query_lvl = query_level(params, len(self.bfv.q_primes))
+        qp = params.query_params
+        needs_relin = bool(
+            plan_query(qp.query_powers, params.table_params.max_items_per_bin,
+                       qp.ps_low_degree).low.levels
+        ) or qp.ps_low_degree > 0
+        self.rk_seed = bytes(self.rng.bytes(32)) if needs_relin else None
+        self.rk = (
+            self.bfv.gen_relin_key(self.sk, self.rng, a_seed=self.rk_seed, level=self.query_lvl)
+            if needs_relin else None
+        )
+        tp = params.table_params
+        self.locs = LocFuncs(tp.table_size, tp.hash_func_count)
+        self.cuckoo: Optional[CuckooTable] = None
+
+    def create_query(self, items: np.ndarray) -> QueryRequest:
+        """items: [n, 2] uint64 hashed items -> encrypted query powers."""
+        p = self.params
+        tp = p.table_params
+        self.cuckoo = cuckoo_insert(items, tp.table_size, tp.hash_func_count, locs=self.locs)
+        slots = np.arange(tp.table_size, dtype=np.int64)
+        prf = self.oprf.eval(self.cuckoo.table, slots)
+        felts = felts_from_items(prf, p.felts_per_item, p.item_bit_count_per_felt)
+
+        # slot vector per bundle index: lane (s % ipb)·fpi + f = felt f of slot s
+        B, N, ipb, fpi = p.bundle_idx_count, p.poly_degree, p.items_per_bundle, p.felts_per_item
+        qvec = np.zeros((B, N), dtype=np.uint32)
+        b = slots // ipb
+        lane = (slots % ipb) * fpi
+        for f in range(fpi):
+            qvec[b, lane + f] = felts[:, f]
+
+        # plaintext powers of the query vector, encoded and encrypted as one
+        # [P, B, N] batch
+        t = p.seal_params.plain_modulus
+        plist = tuple(p.query_params.query_powers)
+        stack = np.stack(
+            [_pow_mod(qvec.astype(np.uint64), s, t).astype(np.uint32) for s in plist]
+        )
+        pt = self.bfv.encode(stack)
+        a_seed = bytes(self.rng.bytes(32))
+        ct = self.bfv.encrypt_symmetric(pt, self.sk, self.rng, a_seed=a_seed,
+                                        level=self.query_lvl)  # [P, B, 2, L, N]
+        return QueryRequest(
+            power_list=plist,
+            powers_data=ct.data,
+            relin_key=self.rk.ksk if self.rk else None,
+            a_seed=a_seed,
+            rk_seed=self.rk_seed,
+        )
+
+    def extract_matrix(self, resp: QueryResponse) -> np.ndarray:
+        """Decrypt the response -> slot-value matrix [B, C, N] mod t (one
+        transfer to the host at the end)."""
+        ct = Ciphertext(self.bfv.tensor(resp.results), is_ntt=False, level=resp.eval_level)
+        return to_u32(self.bfv.decode(self.bfv.decrypt_device(ct, self.sk)))
+
+    def peqt_matrix(self, slot_matrix: np.ndarray) -> np.ndarray:
+        """[B, C, N] -> per-item felt blocks [C, table_size, fpi]."""
+        return _slots_to_item_blocks(self.params, slot_matrix)
+
+
 class Receiver:
     """DB side (large set)."""
 
     def __init__(self, params: PSUParams, db: ReceiverDB, rng=None):
         """rng draws the result masks: a ``numpy.random.Generator`` or a
         ``CsRng`` (the default, from OS entropy)."""
-        if rng is None:
-            from apsu_tpu_torch.mpc.prg import CsRng
-
-            rng = CsRng()
         self.params = params
         self.db = db
         self.bfv = db.bfv
-        self.rng = rng
+        self.rng = _default_rng(rng)
         self.query_lvl = query_level(params, len(self.bfv.q_primes))
         self.plan = plan_query(
             params.query_params.query_powers,
@@ -93,8 +191,6 @@ class Receiver:
         """Evaluate one query.  ``timings``: pass a dict to get an in-call
         phase split {"powers_s", "eval_s"} (a device sync is inserted between
         the power wavefront and the evaluation)."""
-        if not self.plan.uses_ps:
-            raise NotImplementedError("the non-PS evaluation is not ported yet")
         p = self.params
         ql = self.query_lvl
         self.validate_query(req)
@@ -111,31 +207,48 @@ class Receiver:
         self.last_mask = mask
 
         t0 = time.perf_counter()
-        low_ntt, high_coeff = compute_ps_power_tensors(
-            self.bfv, cts, self.plan, rk, eval_level=self.db.eval_lvl,
-            at_eval=powers_at_eval(p), defer_relin=defer_relin(p),
-        )
+        if self.plan.uses_ps:
+            low_ntt, high_coeff = compute_ps_power_tensors(
+                self.bfv, cts, self.plan, rk, eval_level=self.db.eval_lvl,
+                at_eval=powers_at_eval(p), defer_relin=defer_relin(p),
+            )
+            last = high_coeff
+        else:
+            powers = compute_power_tensor(
+                self.bfv, cts, self.plan.low, rk, self.db.eval_lvl, at_eval=powers_at_eval(p),
+            ).movedim(0, 1).contiguous()  # [B, D, 2, Le, N]
+            last = powers
         if timings is not None:
-            synchronize(high_coeff)
+            synchronize(last)
             timings["powers_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
-        res = eval_matching_polys_ps(
-            self.bfv,
-            low_ntt,      # [B, ℓ, 2, L, N]
-            high_coeff,   # [B, nh, 2, L, N]
-            self.db.coeff_cache,
-            self.db.ps_const_polys,
-            self.bfv.tensor(mask),
-            rk,
-            p.query_params.ps_low_degree,
-            self.db.result_lvl,
-            p.table_params.max_items_per_bin,
-            eval_level=self.db.eval_lvl,
-        )
+        if self.plan.uses_ps:
+            res = eval_matching_polys_ps(
+                self.bfv,
+                low_ntt,      # [B, ℓ, 2, L, N]
+                high_coeff,   # [B, nh, 2, L, N]
+                self.db.coeff_cache,
+                self.db.ps_const_polys,
+                self.bfv.tensor(mask),
+                rk,
+                p.query_params.ps_low_degree,
+                self.db.result_lvl,
+                p.table_params.max_items_per_bin,
+                eval_level=self.db.eval_lvl,
+            )
+        else:
+            res = eval_matching_polys(
+                self.bfv, powers, self.db.coeff_cache, self.db.const_slots,
+                self.bfv.tensor(mask), self.db.eval_lvl,
+            )
         if timings is not None:
             synchronize(res.data)
             timings["eval_s"] = time.perf_counter() - t0
-        return QueryResponse(results=res.data, eval_level=self.db.result_lvl)
+        return QueryResponse(results=res.data, eval_level=res.level)
+
+    def peqt_matrix(self) -> np.ndarray:
+        """The last query's mask in per-item felt-block form [C, table_size, fpi]."""
+        return _slots_to_item_blocks(self.params, self.last_mask)
 
 
 def _pow_mod(base: np.ndarray, e: int, m: int) -> np.ndarray:
@@ -148,3 +261,18 @@ def _pow_mod(base: np.ndarray, e: int, m: int) -> np.ndarray:
         b = b * b % np.uint64(m)
         e >>= 1
     return result
+
+
+def _slots_to_item_blocks(params: PSUParams, slot_matrix: np.ndarray) -> np.ndarray:
+    """[B, C, N] slot values -> [C, table_size, fpi] per-item felt blocks."""
+    p = params
+    tp = p.table_params
+    ipb, fpi = p.items_per_bundle, p.felts_per_item
+    slots = np.arange(tp.table_size)
+    b = slots // ipb
+    lane = (slots % ipb) * fpi
+    C = slot_matrix.shape[1]
+    out = np.empty((C, tp.table_size, fpi), dtype=slot_matrix.dtype)
+    for f in range(fpi):
+        out[:, :, f] = slot_matrix[b, :, lane + f].T
+    return out

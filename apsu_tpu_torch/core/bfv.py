@@ -1,5 +1,5 @@
 """RNS-BFV on int32 residue tensors (port of ``apsu_tpu/core/bfv.py``, the
-parts the receiver's Paterson–Stockmeyer query runs).
+parts the receiver's query and the sender's encrypt/decrypt run).
 
 * Ciphertext data is ``[..., n_components, L, N]`` int32: PLAIN residues in
   the coefficient domain, Montgomery-form residues in the NTT domain
@@ -10,6 +10,9 @@ parts the receiver's Paterson–Stockmeyer query runs).
 * Relinearization is RNS-gadget key switching with one digit per data limb
   and a special prime P; keys restrict exactly to any level prefix.
 * Decryption is the BEHZ {t, γ} scale-and-round (``decrypt_device``).
+* Fresh symmetric ciphertexts and relinearization keys can take their
+  uniform ``a`` rows from a public 32-byte seed (``uniform_from_seed``), so
+  the wire carries c0 / ksk[:, 0] plus the seed.
 
 Randomness is drawn on the host from a ``numpy.random.Generator`` (or a
 ``CsRng``) in the reference's order, so one seed gives bit-identical keys,
@@ -69,6 +72,21 @@ def _msum_tensor(base: RnsBase, fa, fb):
     # modular sum over M: canonical terms, exact in int64
     s = torch.remainder(f.to(I64).sum(dim=-4), p).to(I32)
     return base.from_mont(base.ntt.intt(s))
+
+
+def uniform_from_seed(seed: bytes, base: RnsBase, shape_lead=()) -> np.ndarray:
+    """Deterministic uniform residues [..., k, N] (numpy uint32) from a
+    public seed: AES-CTR bytes viewed as uint64, reduced mod each limb prime
+    — identical on both parties and in both packages."""
+    from apsu_tpu_torch.mpc.prg import prg_bytes
+
+    shape = tuple(shape_lead) + (base.k, base.n)
+    total = int(np.prod(shape))
+    u = prg_bytes(seed, 8 * total).view(np.uint64).reshape(shape)
+    out = np.empty(shape, np.uint32)
+    for i, p in enumerate(base.primes):
+        out[..., i, :] = (u[..., i, :] % np.uint64(p)).astype(np.uint32)
+    return out
 
 
 def _smul(x, c: int, m: int):
@@ -265,9 +283,13 @@ class BfvContext:
             out[..., i, :] = rng.integers(0, p, size=shape_lead + (self.n,), dtype=np.uint64)
         return from_u32(out, self.device)
 
-    def gen_relin_key(self, sk: SecretKey, rng, level: Optional[int] = None) -> RelinKey:
+    def gen_relin_key(
+        self, sk: SecretKey, rng, a_seed: Optional[bytes] = None, level: Optional[int] = None
+    ) -> RelinKey:
         """ksk_i = (-(a_i·s + e_i) + P·g_i·s², a_i) mod Q_l·P, NTT/Montgomery,
-        with g_i = q̂_i·[q̂_i^{-1}]_{q_i} the CRT basis element of Q_level."""
+        with g_i = q̂_i·[q̂_i^{-1}]_{q_i} the CRT basis element of Q_level.
+        With ``a_seed`` the a_i rows expand from the seed and ``rng`` draws
+        only the errors."""
         if self.qp is None:
             raise ValueError("no special prime: relinearization unavailable")
         lvl = level if level is not None else self.q.k
@@ -279,7 +301,10 @@ class BfvContext:
             g = base.phat[i] * base.phat_inv[i]  # integer < Q_l
             pg_monts.append([((P * g % p) << 32) % p for p in qp.primes])  # Montgomery form
         pg_mont = col(pg_monts, self.device, (lvl, qp.k, 1))
-        a = self._sample_uniform(rng, qp, shape_lead=(lvl,))  # plain coeff
+        if a_seed is not None:
+            a = self.tensor(uniform_from_seed(a_seed, qp, (lvl,)))
+        else:
+            a = self._sample_uniform(rng, qp, shape_lead=(lvl,))  # plain coeff
         e = self._sample_error(rng, qp, shape_lead=(lvl,))
 
         s_ntt = sk.ntt_mont(qp)
@@ -294,24 +319,46 @@ class BfvContext:
         )
         return RelinKey(torch.stack([k0, a_ntt], dim=1), level=lvl)  # [kdig, 2, kqp, N]
 
+    def relin_key_from_seed(self, k0, a_seed: bytes, level: Optional[int] = None) -> RelinKey:
+        """Rebuild a seed-compressed relin key from k0 = ksk[:, 0]
+        [kdig, Lqp, N] (NTT mont) and the public seed of the a_i rows."""
+        lvl = level if level is not None else self.q.k
+        qp = self._qp_level(lvl)
+        a = self.tensor(uniform_from_seed(a_seed, qp, (lvl,)))
+        return RelinKey(torch.stack([self.tensor(k0), qp.ntt.ntt(qp.to_mont(a))], dim=1), lvl)
+
     # ------------------------------------------------------------------
     # encrypt / decrypt
     # ------------------------------------------------------------------
     def encrypt_symmetric(
-        self, pt_poly, sk: SecretKey, rng, level: Optional[int] = None
+        self, pt_poly, sk: SecretKey, rng, a_seed: Optional[bytes] = None,
+        level: Optional[int] = None,
     ) -> Ciphertext:
         """pt_poly: [..., N] plaintext polynomial(s) mod t -> fresh symmetric
-        ciphertexts [..., 2, L, N] at ``level`` (default: full chain)."""
+        ciphertexts [..., 2, L, N] at ``level`` (default: full chain).  With
+        ``a_seed`` the uniform component expands from the seed and ``rng``
+        draws only the error."""
         lvl = level if level is not None else self.q.k
         q = self.levels[lvl]
         pt = self.tensor(pt_poly)
         lead = tuple(pt.shape[:-1])
-        a = self._sample_uniform(rng, q, shape_lead=lead)
+        if a_seed is not None:
+            a = self.tensor(uniform_from_seed(a_seed, q, lead))
+        else:
+            a = self._sample_uniform(rng, q, shape_lead=lead)
         e = self._sample_error(rng, q, shape_lead=lead)
         a_ntt = q.ntt.ntt(q.to_mont(a))
         as_coeff = q.from_mont(q.ntt.intt(mont_mul(a_ntt, sk.ntt_mont(q), q.p_d, q.pni_d)))
         dm = self._scale_impl(pt, lvl)  # round(Q_l·m/t) mod q_i (plain)
         c0 = add_mod(neg_mod(add_mod(as_coeff, e, q.p_d), q.p_d), dm, q.p_d)
+        return Ciphertext(torch.stack([c0, a], dim=-3), is_ntt=False, level=lvl)
+
+    def ct_from_seed(self, c0, a_seed: bytes, level: Optional[int] = None) -> Ciphertext:
+        """Rebuild seed-compressed fresh symmetric ciphertexts from c0
+        [..., L, N] (plain coeff residues) and the public seed."""
+        lvl = level if level is not None else self.q.k
+        c0 = self.tensor(c0)
+        a = self.tensor(uniform_from_seed(a_seed, self.levels[lvl], tuple(c0.shape[:-2])))
         return Ciphertext(torch.stack([c0, a], dim=-3), is_ntt=False, level=lvl)
 
     def decrypt_device(self, ct: Ciphertext, sk: SecretKey) -> torch.Tensor:

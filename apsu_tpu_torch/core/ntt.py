@@ -19,19 +19,20 @@ import torch
 
 from apsu_tpu_torch.core import nt
 from apsu_tpu_torch.core.mod32 import PrimeConst, col, from_u32, prime_consts, shoup_pair
+from apsu_tpu_torch.device import resolve
 from apsu_tpu_torch.ops import ntt as ntt_op
 
 
 class NttContext:
     """Tables for a fixed (primes, N) pair on one device."""
 
-    def __init__(self, primes: Sequence[int], n: int, device="cpu"):
+    def __init__(self, primes: Sequence[int], n: int, device="cuda"):
         assert n & (n - 1) == 0, "N must be a power of two"
         self.primes = [int(p) for p in primes]
         self.n = n
         self.logn = n.bit_length() - 1
         self.L = len(self.primes)
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.consts: PrimeConst = prime_consts(self.primes)
 
         brev = nt.bit_reverse_perm(n)

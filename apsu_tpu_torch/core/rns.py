@@ -33,6 +33,7 @@ from apsu_tpu_torch.core.mod32 import (
     sub_mod,
 )
 from apsu_tpu_torch.core.ntt import NttContext
+from apsu_tpu_torch.device import resolve
 
 
 def shoup_cols(consts, primes, device):
@@ -46,11 +47,11 @@ def shoup_cols(consts, primes, device):
 class RnsBase:
     """A prime basis {p_1..p_k} with CRT constants and an NTT context."""
 
-    def __init__(self, primes: Sequence[int], n: int, device="cpu"):
+    def __init__(self, primes: Sequence[int], n: int, device="cuda"):
         self.primes = [int(p) for p in primes]
         self.k = len(self.primes)
         self.n = n
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self._ntt: NttContext | None = None  # lazy: table build is O(k·N) host work
         self.prod = 1
         for p in self.primes:

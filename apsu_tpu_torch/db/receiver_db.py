@@ -1,18 +1,26 @@
 """ReceiverDB — the large-set party's evaluation cache as dense tensors
-(port of the PS parts of ``apsu_tpu/db/receiver_db.py``).
+(port of the unlabeled build and the PS parts of
+``apsu_tpu/db/receiver_db.py``).
 
-The cache is the batch-encoded, q-lifted, NTT'd coefficient tensor
-``coeff_cache [B, C, planes, L, N]`` (B bundle indices, C caches, planes ≥
-K+1 coefficient planes zero-padded for the PS gather), resident on the
-device; PS configurations also keep the encoded chunk-constant polynomials
-``ps_const_polys [B, C, nh+1, N]`` in the coefficient domain.  This slice
-builds the cache from a synthetic dense DB (``set_synthetic_dense``) or
-carries a reference DB's arrays across (``from_arrays``); the cuckoo/OPRF
-insert pipeline is not ported yet.
+``set_data`` places every item at each of its ``hash_func_count`` cuckoo
+locations (duplicate (item, slot) pairs dropped; within a slot, overflow
+beyond ``max_items_per_bin`` spills into the next cache), replaces it by its
+slot-bound OPRF value split into ``felts_per_item`` field elements, and
+scatters those into the host tensors roots ``[B, C, K, N]`` and per-lane
+counts ``[B, C, N]``.  One bundle at a time, the device then builds the
+matching polynomials, batch-encodes them and lifts them into the cache
+``coeff_cache [B, C, planes, L, N]`` (NTT domain, Montgomery form, planes ≥
+K+1 zero-padded to a multiple of 8).  Non-PS sets keep each polynomial's
+constant coefficient in the slot domain (``const_slots [B, C, N]``: the
+evaluator folds it into the mask); PS sets keep the encoded chunk-constant
+polynomials ``ps_const_polys [B, C, nh+1, N]``.  ``set_synthetic_dense``
+builds the same cache from random full bins, and ``from_arrays`` carries a
+reference DB's arrays across.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -24,69 +32,185 @@ from apsu_tpu_torch.core.params import PSUParams
 from apsu_tpu_torch.db import measured_levels
 from apsu_tpu_torch.engine.interpolate import polyn_with_roots
 from apsu_tpu_torch.engine.powers import plan_query
+from apsu_tpu_torch.hash.encoding import felts_from_items
+from apsu_tpu_torch.hash.items import LocFuncs
 from apsu_tpu_torch.ops.polyeval import plane_count
 
 
+@dataclasses.dataclass
+class DbStats:
+    n_items: int
+    n_insertions: int
+    n_caches: int             # caches per bundle index (the cache axis C)
+    cache_counts: np.ndarray  # [B] caches actually used per bundle index
+    max_bin_load: int
+
+    def __eq__(self, other) -> bool:
+        if not isinstance(other, DbStats):
+            return NotImplemented
+        return (
+            self.n_items == other.n_items
+            and self.n_insertions == other.n_insertions
+            and self.n_caches == other.n_caches
+            and self.max_bin_load == other.max_bin_load
+            and np.array_equal(self.cache_counts, other.cache_counts)
+        )
+
+
 class ReceiverDB:
-    def __init__(self, params: PSUParams, bfv: Optional[BfvContext] = None, device="cuda"):
+    def __init__(self, params: PSUParams, oprf=None, bfv: Optional[BfvContext] = None,
+                 device="cuda"):
+        """``oprf`` (an ``OprfBackend``) is needed by ``set_data`` only."""
         self.params = params
+        self.oprf = oprf
         self.bfv = bfv or BfvContext(params.seal_params, device=device)
         self.device = self.bfv.device
+        tp = params.table_params
+        self.locs = LocFuncs(tp.table_size, tp.hash_func_count)
         self.coeff_cache: Optional[torch.Tensor] = None  # [B, C, planes, L, N] NTT mont
         self.const_slots: Optional[torch.Tensor] = None   # [B, C, N] coeff-0 slots
         self.ps_const_polys: Optional[torch.Tensor] = None
         self.eval_lvl: Optional[int] = None
         self.result_lvl: Optional[int] = None
+        self.stats: Optional[DbStats] = None
 
     @classmethod
     def from_arrays(cls, params: PSUParams, arrays: dict, device="cuda",
                     bfv: Optional[BfvContext] = None) -> "ReceiverDB":
         """A port DB holding a reference DB's state: ``arrays`` carries
-        ``coeff_cache`` and ``ps_const_polys`` (numpy uint32) and the levels
-        ``eval_lvl``/``result_lvl``."""
+        ``coeff_cache`` and ``const_slots`` or ``ps_const_polys`` (numpy
+        uint32) and the levels ``eval_lvl``/``result_lvl``."""
         db = cls(params, bfv=bfv, device=device)
-        db.coeff_cache = db.bfv.tensor(arrays["coeff_cache"])
-        db.ps_const_polys = db.bfv.tensor(arrays["ps_const_polys"])
+        for name in ("coeff_cache", "const_slots", "ps_const_polys"):
+            if name in arrays:
+                setattr(db, name, db.bfv.tensor(arrays[name]))
         db.eval_lvl = int(arrays["eval_lvl"])
         db.result_lvl = int(arrays["result_lvl"])
         return db
 
     # ------------------------------------------------------------------
-    def _build_cache(self, roots: np.ndarray, counts: np.ndarray) -> None:
-        """Device build for PS configurations: polynomials -> batch encode ->
-        lift to NTT mod q at the PS level, one bundle at a time.
+    def set_data(self, items: np.ndarray) -> DbStats:
+        """items: [n, 2] uint64 128-bit hashed items.  Builds the cache."""
+        if self.oprf is None:
+            raise ValueError("set_data needs an OPRF backend")
+        p = self.params
+        tp = p.table_params
+        n = items.shape[0]
+        h = tp.hash_func_count
+        K = tp.max_items_per_bin
 
-        roots [B, C, K, N] uint32 mod t, counts [B, C, N] per-lane bin loads.
-        Also keeps the encoded chunk-constant polynomials c_{k·(ℓ+1)}."""
+        # 1. all cuckoo locations as (item, slot) pairs; a slot repeated in
+        # one item's own row counts once
+        locs = self.locs.locations(items)          # [n, h]
+        keep2d = np.ones(locs.shape, dtype=bool)
+        for j in range(1, h):
+            for i in range(j):
+                keep2d[:, j] &= locs[:, j] != locs[:, i]
+        row_keep = keep2d.reshape(-1)
+        item_idx = np.broadcast_to(np.arange(n, dtype=np.int64)[:, None], (n, h)).reshape(-1)
+        slots, item_idx = locs.reshape(-1)[row_keep], item_idx[row_keep]
+
+        if len(slots):
+            # a duplicate input item hits the same slots: keep its first pair
+            r0, r1 = items[item_idx, 0], items[item_idx, 1]
+            order0 = np.lexsort((r1, r0, slots))
+            sk, s0, s1 = slots[order0], r0[order0], r1[order0]
+            dup = (sk[1:] == sk[:-1]) & (s0[1:] == s0[:-1]) & (s1[1:] == s1[:-1])
+            keepu = np.empty(len(slots), dtype=bool)
+            keepu[order0] = np.concatenate([[True], ~dup])
+            slots, item_idx = slots[keepu], item_idx[keepu]
+
+        # 2. per-slot ranks -> (cache, depth)
+        order = np.argsort(slots, kind="stable")
+        ss = slots[order]
+        first = np.searchsorted(ss, ss, side="left")
+        ranks = np.empty(len(ss), dtype=np.int64)
+        ranks[order] = np.arange(len(ss)) - first
+        cache_idx, depth = ranks // K, ranks % K
+        C = int(cache_idx.max()) + 1 if len(cache_idx) else 1
+        slot_counts = np.bincount(slots, minlength=tp.table_size)
+
+        # 3. slot-bound OPRF + felts (on a copy of the kept items: nothing of
+        # the caller's array is retained)
+        prf = self.oprf.eval(items[item_idx], slots)
+        felts = felts_from_items(prf, p.felts_per_item, p.item_bit_count_per_felt)
+        return self._finish_build(n, slots, felts, cache_idx, depth, C, slot_counts)
+
+    def _finish_build(self, n, slots, felts, cache_idx, depth, C, slot_counts) -> DbStats:
+        """Dense host roots/counts tensors, then the device build."""
+        p = self.params
+        tp = p.table_params
+        fpi, K, N, ipb = p.felts_per_item, tp.max_items_per_bin, p.poly_degree, p.items_per_bundle
+        B = p.bundle_idx_count
+
+        bundle_idx = slots // ipb
+        lane = (slots % ipb) * fpi
+        roots = np.zeros((B, C, K, N), dtype=np.uint32)
+        counts = np.zeros((B, C, N), dtype=np.int32)
+        for f in range(fpi):
+            roots[bundle_idx, cache_idx, depth, lane + f] = felts[:, f]
+        per_bundle_caches = np.zeros(B, dtype=np.int64)
+        sidx = np.arange(tp.table_size)
+        sb = sidx // ipb
+        sl = (sidx % ipb) * fpi
+        for c in range(C):
+            cnt_c = np.clip(slot_counts - c * K, 0, K)  # dense rank filling
+            for f in range(fpi):
+                counts[sb, c, sl + f] = cnt_c
+            used = np.bincount(sb[cnt_c > 0], minlength=B) > 0
+            per_bundle_caches[used] += 1
+
+        self._build_cache(roots, counts)
+        self.stats = DbStats(
+            n_items=n,
+            n_insertions=len(slots),
+            n_caches=C,
+            cache_counts=per_bundle_caches,
+            max_bin_load=int(slot_counts.max()) if len(slot_counts) else 0,
+        )
+        if self.stats.max_bin_load > K * C:
+            raise ValueError("bin overflow beyond cache capacity")
+        return self.stats
+
+    # ------------------------------------------------------------------
+    def _build_cache(self, roots: np.ndarray, counts: np.ndarray) -> None:
+        """Device build, one bundle at a time: polynomials -> batch encode ->
+        lift to NTT mod q.  roots [B, C, K, N] uint32 mod t, counts [B, C, N]
+        per-lane bin loads.
+
+        PS sets build at the PS level and keep the encoded chunk-constant
+        polynomials c_{k·(ℓ+1)}; non-PS sets build at ``eval_level()``, keep
+        each constant coefficient in the slot domain, and answer at that
+        level."""
         p = self.params
         B, C, K, N = roots.shape
         ps_low = p.query_params.ps_low_degree
-        if ps_low == 0:
-            raise NotImplementedError("the non-PS DB build is not ported yet")
-        lvl = self.ps_level()
+        uses_ps = ps_low > 0
+        lvl = self.ps_level() if uses_ps else self.eval_level()
         t = p.seal_params.plain_modulus
-        ph = ps_low + 1
-        nh = K // ph
-        const_idx = torch.arange(0, nh + 1, device=self.device) * ph
         planes = plane_count(K, ps_low)
+        if uses_ps:
+            ph = ps_low + 1
+            const_idx = torch.arange(0, K // ph + 1, device=self.device) * ph
         Lq = self.bfv.levels[lvl].k
         bfv = self.bfv
         cache = torch.empty((B, C, planes, Lq, N), dtype=torch.int32, device=self.device)
         consts, ps_consts = [], []
         for b in range(B):
             coeffs = polyn_with_roots(bfv.tensor(roots[b]), bfv.tensor(counts[b]), t)
-            if planes > K + 1:  # zero planes keep every PS gather in bounds
+            if planes > K + 1:  # zero planes: chunk alignment and in-bounds PS gathers
                 pad = torch.zeros((C, planes - (K + 1), N), dtype=coeffs.dtype, device=self.device)
                 coeffs = torch.cat([coeffs, pad], dim=-2)
             polys = bfv.encode(coeffs)                                  # [C, planes, N]
             cache[b] = bfv.lift_plaintext_ntt(polys, lvl)               # [C, planes, L, N]
             consts.append(coeffs[..., 0, :])
-            ps_consts.append(polys[..., const_idx, :])
+            if uses_ps:
+                ps_consts.append(polys[..., const_idx, :])
         self.coeff_cache = cache
         self.const_slots = torch.stack(consts)
-        self.ps_const_polys = torch.stack(ps_consts)
+        self.ps_const_polys = torch.stack(ps_consts) if uses_ps else None
         self.eval_lvl = lvl
-        self.result_lvl = self.result_level()
+        self.result_lvl = self.result_level() if uses_ps else lvl
 
     def set_synthetic_dense(self, rng, n_caches: int = 1) -> np.ndarray:
         """Worst-case synthetic DB: every bin packed to max_items_per_bin with
@@ -102,6 +226,13 @@ class ReceiverDB:
         )
         counts = np.full((B, C, N), K, dtype=np.int32)
         self._build_cache(roots, counts)
+        self.stats = DbStats(
+            n_items=B * C * K * N,
+            n_insertions=B * C * K * N,
+            n_caches=C,
+            cache_counts=np.full(B, C, dtype=np.int64),
+            max_bin_load=K * C,
+        )
         return roots
 
     # ------------------------------------------------------------------

@@ -1,7 +1,13 @@
-"""The receiver's Paterson–Stockmeyer query: power wavefront and batched
-evaluation (port of the PS parts of ``apsu_tpu/engine/evaluator.py``).
+"""The receiver's query: power wavefront and batched evaluation (port of
+the unlabeled parts of ``apsu_tpu/engine/evaluator.py``).
 
-``compute_ps_power_tensors`` runs the low (x^1..x^ℓ) and high
+Non-PS sets: ``compute_power_tensor`` runs the power DAG as a
+level-synchronous wavefront of batched BEHZ products and relinearizations,
+mod-switches every power to the evaluation level and NTTs it;
+``eval_matching_polys`` computes Σ_j x^j ⊙ pt_j per (bundle, cache) row with
+kernel 3, leaves the NTT domain and adds Δ·encode(const + mask).
+
+PS sets: ``compute_ps_power_tensors`` runs the low (x^1..x^ℓ) and high
 (y^1..y^nh, y = x^(ℓ+1)) power DAGs as ONE merged level-synchronous
 wavefront of batched BEHZ products and relinearizations, then mod-switches to
 the evaluation level and NTTs the low powers.  ``eval_matching_polys_ps``
@@ -23,7 +29,7 @@ import torch
 from apsu_tpu_torch.core.bfv import BfvContext, Ciphertext, RelinKey
 from apsu_tpu_torch.core.mod32 import add_mod
 from apsu_tpu_torch.engine.powers import PowerSchedule, QueryPlan
-from apsu_tpu_torch.ops.polyeval import ps_inner
+from apsu_tpu_torch.ops.polyeval import eval_dot, ps_inner
 
 MUL_CHUNK = 8            # targets per batched multiply + relinearize
 ROW_BUDGET_BYTES = 40 << 30  # device bytes one eval row chunk may use
@@ -83,6 +89,51 @@ def _run_schedule(
             for i in defer_idx:  # stays 3-component; caller relinearizes
                 have[group[i][0]] = Ciphertext(prod3[i], is_ntt=False, level=k)
     return have
+
+
+def compute_power_tensor(
+    bfv: BfvContext,
+    source_cts: Dict[int, Ciphertext],
+    schedule: PowerSchedule,
+    relin_key: Optional[RelinKey],
+    eval_level: int,
+    at_eval: bool = False,
+) -> torch.Tensor:
+    """Power tensor for the non-PS path: NTT-Montgomery powers x^1..x^D
+    [D, ..., 2, Le, N] at ``eval_level``.  ``source_cts`` are the fresh query
+    ciphertexts (coeff domain, query level), identically batched; the
+    wavefront runs at the query level, or at the evaluation level when
+    ``at_eval`` (from the measured-level table)."""
+    src_lvl = next(iter(source_cts.values())).level
+    if schedule.levels and relin_key is None:
+        raise ValueError("power schedule requires relinearization keys")
+    wf_lvl = eval_level if at_eval else src_lvl
+    have = {s: bfv.mod_switch_to(ct, wf_lvl) for s, ct in source_cts.items()}
+    have = _run_schedule(bfv, have, schedule, relin_key, level=wf_lvl)
+    stack = torch.stack([have[p].data for p in range(1, schedule.max_power + 1)])
+    switched = bfv.mod_switch_to(Ciphertext(stack, is_ntt=False, level=wf_lvl), eval_level)
+    return bfv.to_ntt(switched).data
+
+
+def eval_matching_polys(
+    bfv: BfvContext,
+    powers_ntt: torch.Tensor,   # [B, D, 2, Le, N] NTT mont: x^1..x^D
+    coeff_cache: torch.Tensor,  # [B, C, Dp, Le, N] NTT mont plaintext planes
+    const_slots: torch.Tensor,  # [B, C, N] < t: coefficient 0 in the slot domain
+    mask_slots: torch.Tensor,   # [B, C, N] < t: random mask r
+    eval_level: int,
+) -> Ciphertext:
+    """result[b, c] = Σ_{j=1..D} x^j[b] ⊙ pt[b, c, j] + Δ·encode(const + mask):
+    the dot product (kernel 3) in the NTT domain, INTT to the coefficient
+    domain, then the constant and the mask, added in the slot domain before
+    encoding.  Returns ciphertexts [B, C, 2, Le, N] in the coefficient
+    domain."""
+    base = bfv.levels[eval_level]
+    cms = add_mod(const_slots, mask_slots, bfv.t)
+    acc = base.from_mont(base.ntt.intt(eval_dot(powers_ntt, coeff_cache, base)))
+    dm = bfv._scale_impl(bfv.encode(cms), eval_level)   # round(Q_l·m/t), plain
+    acc[:, :, 0] = add_mod(acc[:, :, 0], dm, base.p_d)
+    return Ciphertext(acc, is_ntt=False, level=eval_level)
 
 
 _MERGE_OFF = 1 << 20  # disjoint target namespace for merged high powers

@@ -1,8 +1,9 @@
-"""Cryptographically secure RNG (port of ``apsu_tpu/mpc/prg.py:CsRng``).
+"""Cryptographically secure RNG and seed expansion (port of
+``apsu_tpu/mpc/prg.py:CsRng`` and ``prg_bytes``).
 
-``cryptography`` is imported inside ``CsRng.__init__``, so the rest of the
-package (and any caller that passes a ``numpy.random.Generator``) runs on a
-host without it.
+``cryptography`` is imported inside the functions that use it, so the rest of
+the package (and any caller that passes a ``numpy.random.Generator``) runs on
+a host without it.
 """
 
 from __future__ import annotations
@@ -73,3 +74,14 @@ class CsRng:
         if size is None:
             return z[0]
         return z.reshape(size)
+
+
+def prg_bytes(seed: bytes, n: int) -> np.ndarray:
+    """Expand a 16/32-byte seed to n pseudorandom bytes (AES-CTR)."""
+    from cryptography.hazmat.primitives.ciphers import Cipher, algorithms, modes
+
+    key = seed.ljust(16, b"\0")[:16] if len(seed) < 32 else seed[:32]
+    if len(key) not in (16, 32):
+        key = key.ljust(32, b"\0")
+    enc = Cipher(algorithms.AES(key), modes.CTR(b"\0" * 16)).encryptor()
+    return np.frombuffer(enc.update(b"\0" * n), dtype=np.uint8).copy()

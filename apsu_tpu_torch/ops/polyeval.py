@@ -1,7 +1,9 @@
-"""Kernel 2: the Paterson–Stockmeyer inner sums (``csrc/ps_inner.cu``) and
-their plain PyTorch version, plus the DB plane layout helpers.
+"""Kernels 2 and 3: the Paterson–Stockmeyer inner sums (``csrc/ps_inner.cu``)
+and the matching-polynomial dot product (``csrc/eval_dot.cu``), each with its
+plain PyTorch version, plus the DB plane layout helpers.
 
-Replaces the TPU kernel ``apsu_tpu/ops/polyeval.py:eval_ps_inner_pallas3``:
+Kernel 2 replaces the TPU kernel
+``apsu_tpu/ops/polyeval.py:eval_ps_inner_pallas3``:
 
     out[r, k] = Σ_{i=1..ph-1} low[r // C, i-1] ⊙_mont cache5[r, k, i]
 
@@ -11,8 +13,18 @@ must stream through once.  The kernel reads it once, in place through its row
 stride (the evaluator's strided view is never copied), accumulates exact
 64-bit sums per output lane and reduces once at the end.
 
-``ps_inner`` launches the kernel for CUDA tensors and runs the plain version
-for CPU tensors; both are bit-identical to the reference.
+Kernel 3 replaces ``apsu_tpu/ops/polyeval.py:eval_dot_pallas`` (the non-PS
+evaluation):
+
+    out[b, c] = Σ_{j=1..D} powers[b, j-1] ⊙_mont cache[b, c, j]
+
+It too is bound by the bytes of the cache, which streams through once; each
+thread reuses its two power residues across a block of caches.  It takes
+every prime < 2^30 (the TPU kernel needs < 2^28), folding its u64 sums before
+they can wrap.
+
+``ps_inner`` and ``eval_dot`` launch their kernels for CUDA tensors and run
+the plain versions for CPU tensors; both are bit-identical to the reference.
 """
 
 from __future__ import annotations
@@ -29,9 +41,11 @@ if TYPE_CHECKING:
 
 DEG_CHUNK = 8
 MAX_TERMS = 256       # ph - 1 products < 2^56 each fit a u64 accumulator
-MAX_PRIME = 1 << 28   # the kernel's operand bound
+MAX_PRIME = 1 << 28   # the PS kernel's operand bound
+MAX_DOT_PRIME = 1 << 30  # the dot kernel's operand bound
 
-launches = 0  # kernel launches since the last reset (set to 0 to reset)
+launches = 0  # PS kernel launches since the last reset (set to 0 to reset)
+dot_launches = 0  # dot kernel launches since the last reset
 
 
 def plane_count(K: int, ps_low_degree: int) -> int:
@@ -125,6 +139,80 @@ def ps_inner_plain(low, cache5, base: RnsBase, caches_per_bundle: int) -> torch.
     for i in range(1, ph):
         s += low_r[:, None, i - 1].to(I64) * cache5[:, :, i, None].to(I64)
         if i % DEG_CHUNK == 0 or i == ph - 1:
+            acc = add_mod(acc, _redc(s, p, pni), p)
+            s.zero_()
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3: the non-PS matching-polynomial dot product
+# ---------------------------------------------------------------------------
+
+def _check_dot(powers, cache, base: RnsBase):
+    if powers.dtype != I32 or cache.dtype != I32:
+        raise TypeError("eval_dot needs int32 residues")
+    if powers.dim() != 5 or cache.dim() != 5:
+        raise ValueError("eval_dot needs powers [B, D, 2, L, N] and cache [B, C, Dp, L, N]")
+    B, D, two, L, N = powers.shape
+    Bc, C, Dp, Lc, Nc = cache.shape
+    if two != 2 or (Bc, Lc, Nc) != (B, L, N):
+        raise ValueError(f"shape mismatch: powers {tuple(powers.shape)}, cache {tuple(cache.shape)}")
+    if Dp % DEG_CHUNK or D + 1 > Dp:
+        raise ValueError(f"cache planes {Dp} must be a multiple of {DEG_CHUNK} above {D} powers")
+    if base.k != L or any(q >= MAX_DOT_PRIME for q in base.primes):
+        raise ValueError("eval_dot needs one prime per limb, each < 2^30")
+
+
+def eval_dot(powers, cache, base: RnsBase) -> torch.Tensor:
+    """Matching-polynomial dot product.  powers [B, D, 2, L, N] NTT mont
+    (x^1..x^D, unpadded); cache [B, C, Dp, L, N] NTT mont coefficient planes
+    (plane 0 = constant, planes > D zero padding, Dp % 8 == 0); ``base`` is
+    the L-limb RNS base on the tensors' device.  Returns [B, C, 2, L, N]."""
+    if powers.device.type == "cpu" and cache.device.type == "cpu":
+        return eval_dot_plain(powers, cache, base)
+    return eval_dot_cuda(powers, cache, base)
+
+
+def eval_dot_cuda(powers, cache, base: RnsBase) -> torch.Tensor:
+    global dot_launches
+    _check_dot(powers, cache, base)
+    if not (powers.is_cuda and cache.is_cuda and powers.device == cache.device):
+        raise ValueError("eval_dot_cuda needs both tensors on one CUDA device")
+    if base.device.type != "cuda" or base.p_u32.device != powers.device:
+        raise ValueError("the RNS base lives on another device than the inputs")
+    if not (powers.is_contiguous() and cache.is_contiguous()):
+        raise ValueError("eval_dot_cuda needs contiguous tensors")
+    B, D, _, L, N = powers.shape
+    C, Dp = cache.shape[1], cache.shape[2]
+    if max(B, C, Dp, L, N) >= 1 << 31 or -(-C // 4) >= 1 << 16:
+        raise ValueError("eval_dot_cuda shape too large")
+    out = torch.empty((B, C, 2, L, N), dtype=I32, device=powers.device)
+    if out.numel() == 0:
+        return out
+    err = _build.lib().apsu_eval_dot(
+        powers.data_ptr(), cache.data_ptr(), out.data_ptr(), base.p_u32.data_ptr(),
+        base.pni_u32.data_ptr(), B, C, D, Dp, L, N, _build.stream_ptr(powers.device),
+    )
+    _build.check(err, "eval_dot")
+    dot_launches += 1
+    return out
+
+
+def eval_dot_plain(powers, cache, base: RnsBase) -> torch.Tensor:
+    """int64 multiply-accumulate with REDC at the reference's fold points:
+    raw products summed over each DEG_CHUNK-plane chunk of the padded plane
+    axis (< 2^63 for primes < 2^30), each chunk folded by one Montgomery
+    reduction into the canonical accumulator."""
+    _check_dot(powers, cache, base)
+    B, D, _, L, N = powers.shape
+    C = cache.shape[1]
+    dev = powers.device
+    p, pni = base.p_d.to(dev), base.pni_d.to(dev)
+    acc = torch.zeros((B, C, 2, L, N), dtype=I32, device=dev)
+    s = torch.zeros((B, C, 2, L, N), dtype=I64, device=dev)
+    for j in range(1, D + 1):
+        s += powers[:, None, j - 1].to(I64) * cache[:, :, j, None].to(I64)
+        if j % DEG_CHUNK == DEG_CHUNK - 1 or j == D:
             acc = add_mod(acc, _redc(s, p, pni), p)
             s.zero_()
     return acc

@@ -8,10 +8,11 @@ Phases, each printing one JSON object per line:
 1. the card (``nvidia-smi`` name and power limit) and the kernel build
    (``nvcc`` for ``sm_90a``, every ``csrc/*.cu`` in parallel);
 2. each hand-written kernel against its plain PyTorch version on CUDA tensors,
-   bit for bit, at the shapes of the 16M-4096 query (NTT: eval, query, Bsk,
-   key and plain-modulus bases at N=8192 plus a 30-bit prime at N=4096;
-   PS inner sums: one eval chunk of the 4-bundle x 6-cache cache);
-3. the main path at full width: a dense synthetic 16M-4096 ReceiverDB
+   bit for bit, at the shapes of the two paths (NTT: eval, query, Bsk, key
+   and plain-modulus bases of 16M-4096 at N=8192 plus a 30-bit prime at
+   N=4096; PS inner sums: one eval chunk of the 4-bundle x 6-cache cache;
+   the dot product: the 1M-2048-cmp shape, 30-bit primes, and 520 planes);
+3. the PS path at full width: a dense synthetic 16M-4096 ReceiverDB
    (B=4, C=6, cache [4, 6, 1312, 4, 8192] int32 on the card), one encrypted
    query with a relinearization key, ``Receiver.run_query`` once cold, three
    times warm and once with the in-call split, then the planted-match oracle
@@ -19,8 +20,17 @@ Phases, each printing one JSON object per line:
    no non-match does (and, as a control, a response checked against another
    query's mask must fail);
 4. the kernels again against their plain versions at every shape the warm
-   query launched them with, and their per-query device time;
-5. the ``kernels`` summary line, then ``{"ok": true, "device": ...}``.
+   PS query launched them with, and their per-query device time;
+5. the in-process PSU at full width on 1M-2048-cmp: 2^20 receiver items
+   through ``ReceiverDB.set_data`` (cache [5, 15, 80, 2, 4096] on the card),
+   a 2048-item ``Sender`` query of which 1024 items are in the DB, and
+   ``run_psu``, checked by set algebra (transferred == query - db, union ==
+   db | query); then ``Receiver.run_query`` on that request once cold and
+   three times warm, each response decrypted and run through the endgame
+   against its own mask (exact) and, as a control, one against another
+   query's mask (must fail); then the NTT and dot-product kernels against
+   their plain versions at the shapes the warm query launched them with;
+6. the ``kernels`` summary line, then ``{"ok": true, "device": ...}``.
 
 Any mismatch, build failure or launch failure raises, and the run exits
 non-zero without the ``ok`` line.  Exits non-zero at once when
@@ -47,9 +57,14 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # every value is an integer residue, so a kernel must equal its plain version
 TOLERANCE = 0
-# the main path: caches per bundle of the dense DB, and warm queries
+# the PS path: caches per bundle of the dense DB, and warm queries
 CACHES = 6
 WARM = 3
+# the non-PS path: receiver items, sender items and how many of those the
+# receiver holds
+DB_ITEMS = 1 << 20
+QUERY_ITEMS = 2048
+COMMON_ITEMS = 1024
 
 
 def emit(obj) -> None:
@@ -107,6 +122,18 @@ def ps_bound_ms(low_shape, cache_shape):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def dot_bound_ms(powers_shape, cache_shape):
+    """Least time for the dot product: cache planes 1..D of every cache, the
+    powers and the output moved once, or 4 32-bit multiplies per 64-bit
+    multiply-add (2 components) at the INT32 rate."""
+    B, D, _, L, N = powers_shape
+    C = cache_shape[1]
+    nbytes = (B * C * D * L * N + B * D * 2 * L * N + B * C * 2 * L * N) * 4
+    mults = 2 * 2 * B * C * D * L * N
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, mults / INT32_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
 def check_ntt(tb, shape, gen, label):
     from apsu_tpu_torch.ops import ntt as ntt_op
 
@@ -147,6 +174,75 @@ def check_ps_inner(low, cache5, q):
     }
     emit(res)
     return res
+
+
+def check_eval_dot(powers, cache, base, label):
+    from apsu_tpu_torch.ops import polyeval
+
+    k = polyeval.eval_dot_cuda(powers, cache, base)
+    pl = polyeval.eval_dot_plain(powers, cache, base)
+    err = max_abs_err(k, pl)
+    if err > TOLERANCE or not torch.equal(k, pl):
+        raise AssertionError(f"dot-product kernel != plain ({label}): {err}")
+    b_ms, b_by = dot_bound_ms(tuple(powers.shape), tuple(cache.shape))
+    res = {
+        "check": "eval_dot", "case": label, "powers": list(powers.shape),
+        "cache": list(cache.shape), "primes_bits": [p.bit_length() for p in base.primes],
+        "max_abs_err": err, "tolerance": TOLERANCE,
+        "ms": cuda_ms(lambda: polyeval.eval_dot_cuda(powers, cache, base)),
+        "plain_ms": cuda_ms(lambda: polyeval.eval_dot_plain(powers, cache, base), reps=2),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    emit(res)
+    return res
+
+
+def check_ntt_shapes(shapes, gen):
+    """NTT kernel against its plain version at every recorded (shape,
+    inverse, tables) launch; returns a summary with the per-query device
+    time and the largest shape's kernel, plain and bound times."""
+    from apsu_tpu_torch.ops import ntt as ntt_op
+
+    distinct = {}
+    for shape, inverse, tb in shapes:
+        key = (shape, inverse, id(tb))
+        distinct.setdefault(key, [shape, inverse, tb, 0])[3] += 1
+    query_ms, big, err = 0.0, None, 0
+    for shape, inverse, tb, count in distinct.values():
+        x = rand_residues(shape, tb.primes, gen)
+        k = ntt_op.ntt_cuda(x, tb, inverse)
+        pl = ntt_op.ntt_plain(x, tb, inverse)
+        err = max(err, max_abs_err(k, pl))
+        if not torch.equal(k, pl):
+            raise AssertionError(f"NTT kernel != plain at {shape} inverse={inverse}")
+        ms = cuda_ms(lambda: ntt_op.ntt_cuda(x, tb, inverse))
+        query_ms += ms * count
+        if big is None or x.numel() > big[0].numel():
+            big = (x, tb, inverse, ms)
+        del x, k, pl
+    x, tb, inverse, ms = big
+    plain_ms = cuda_ms(lambda: ntt_op.ntt_plain(x, tb, inverse), reps=2)
+    b_ms, b_by = ntt_bound_ms(tuple(x.shape), tb.L, tb.n, inverse)
+    summary = {"launches": len(shapes), "distinct_shapes": len(distinct),
+               "device_ms_per_query": query_ms, "max_abs_err": err,
+               "largest_shape": list(x.shape), "largest_inverse": inverse,
+               "largest_ms": ms, "largest_plain_ms": plain_ms, "largest_bound_ms": b_ms,
+               "largest_bound_by": b_by, "n": sorted({s[-1] for s, _, _ in shapes})}
+    return summary
+
+
+def make_sets(rng, n_db, n_query, n_common):
+    """Random 128-bit item sets with a planted intersection."""
+    db = rng.integers(0, 1 << 64, size=(n_db, 2), dtype=np.uint64)
+    fresh = rng.integers(0, 1 << 64, size=(n_query - n_common, 2), dtype=np.uint64)
+    common = db[rng.choice(n_db, size=n_common, replace=False)]
+    query = np.concatenate([fresh, common])
+    rng.shuffle(query)
+    return db, query
+
+
+def as_set(a):
+    return {(int(x), int(y)) for x, y in a}
 
 
 def profile_query(recv, req) -> None:
@@ -212,7 +308,7 @@ def main() -> int:
           "ptxas": [ln.strip() for ln in _build.ptxas_log.splitlines()
                     if "registers" in ln or "spill" in ln]})
 
-    # -- phase 2: kernels against plain versions at the main path's shapes --
+    # -- phase 2: kernels against plain versions at the paths' shapes -------
     params = PSUParams.load_file(str(ROOT / "parameters" / "16M-4096.json"))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
@@ -245,9 +341,10 @@ def main() -> int:
     cache5 = cache[:, : nseg * ph].reshape(B * C, nseg, ph, q.k, N)
     check_ps_inner(low, cache5, q)
     del low, cache, cache5
+    dot_checks = check_dot_cases(gen)
     torch.cuda.empty_cache()
 
-    # -- phase 3: the main path at full width --------------------------------
+    # -- phase 3: the PS path at full width ----------------------------------
     rng = np.random.default_rng(args.seed)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -322,60 +419,207 @@ def main() -> int:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
 
     # -- phase 4: kernels at every shape the warm query used -----------------
-    distinct = {}
-    for shape, inverse, tb in shapes:
-        key = (shape, inverse, id(tb))
-        distinct.setdefault(key, [shape, inverse, tb, 0])[3] += 1
-    ntt_query_ms, big = 0.0, None
-    ntt_err = 0
-    for shape, inverse, tb, count in distinct.values():
-        x = rand_residues(shape, tb.primes, gen)
-        k = ntt_op.ntt_cuda(x, tb, inverse)
-        pl = ntt_op.ntt_plain(x, tb, inverse)
-        ntt_err = max(ntt_err, max_abs_err(k, pl))
-        if not torch.equal(k, pl):
-            raise AssertionError(f"NTT kernel != plain at {shape} inverse={inverse}")
-        ms = cuda_ms(lambda: ntt_op.ntt_cuda(x, tb, inverse))
-        ntt_query_ms += ms * count
-        if big is None or x.numel() > big[0].numel():
-            big = (x, tb, inverse, ms)
-        del x, k, pl
-    x, tb, inverse, ntt_ms = big
-    ntt_plain_ms = cuda_ms(lambda: ntt_op.ntt_plain(x, tb, inverse), reps=2)
-    nb_ms, nb_by = ntt_bound_ms(tuple(x.shape), tb.L, tb.n, inverse)
-    emit({"ntt_warm_query": {"launches": len(shapes), "distinct_shapes": len(distinct),
-                             "device_ms_per_query": ntt_query_ms, "max_abs_err": ntt_err,
-                             "largest_shape": list(x.shape), "largest_inverse": inverse,
-                             "largest_ms": ntt_ms, "largest_plain_ms": ntt_plain_ms,
-                             "largest_bound_ms": nb_ms}})
+    ntt_ps = check_ntt_shapes(shapes, gen)
+    emit({"ntt_warm_query": ntt_ps})
 
     low = rand_residues((B, ph - 1, 2, q.k, N), q.primes, gen)
     cache5 = db.coeff_cache.reshape(B * C, planes, q.k, N)[:, : nseg * ph].reshape(
         B * C, nseg, ph, q.k, N)
     ps = check_ps_inner(low, cache5, q)
-    pb_ms, pb_by = ps_bound_ms(tuple(low.shape), tuple(cache5.shape))
+    low_shape, cache5_shape = tuple(low.shape), tuple(cache5.shape)
+    pb_ms, pb_by = ps_bound_ms(low_shape, cache5_shape)
 
     if args.profile:
         profile_query(recv, req)
+    # release the PS path's 4 GB cache before the next path
+    del recv, req, db, cache5, low, runs, resp
+    torch.cuda.empty_cache()
+
+    # -- phase 5: the in-process PSU at 1M-2048-cmp ----------------------------
+    psu = non_ps_path(args, gen)
 
     kernels = [
         {"name": "ntt", "route": "cuda", "source": "apsu_tpu_torch/csrc/ntt.cu",
-         "replaces": "apsu_tpu/ops/ntt4_pallas.py:504", "launches": launches["ntt"],
-         "max_abs_err": ntt_err, "tolerance": TOLERANCE,
-         "ms": ntt_ms, "plain_ms": ntt_plain_ms,
-         "bound_ms": nb_ms, "bound_by": nb_by, "library_ms": None,
-         "shape": list(x.shape), "inverse": inverse},
+         "replaces": "apsu_tpu/ops/ntt4_pallas.py:504 (N=8192), "
+                     "apsu_tpu/ops/ntt_pallas.py:118 (N=2048/4096)",
+         "launches": launches["ntt"] + psu["launches"]["ntt"],
+         "launches_by_path": {"ps_16M-4096": launches["ntt"],
+                              "psu_1M-2048-cmp": psu["launches"]["ntt"]},
+         "max_abs_err": max(ntt_ps["max_abs_err"], psu["ntt"]["max_abs_err"]),
+         "tolerance": TOLERANCE,
+         "ms": ntt_ps["largest_ms"], "plain_ms": ntt_ps["largest_plain_ms"],
+         "bound_ms": ntt_ps["largest_bound_ms"], "bound_by": ntt_ps["largest_bound_by"],
+         "library_ms": None,
+         "shape": ntt_ps["largest_shape"], "inverse": ntt_ps["largest_inverse"],
+         "n4096": {k: psu["ntt"][k] for k in ("largest_shape", "largest_inverse", "largest_ms",
+                                              "largest_plain_ms", "largest_bound_ms",
+                                              "largest_bound_by", "device_ms_per_query")}},
         {"name": "ps_inner", "route": "cuda", "source": "apsu_tpu_torch/csrc/ps_inner.cu",
          "replaces": "apsu_tpu/ops/polyeval.py:434", "launches": launches["ps_inner"],
          "max_abs_err": ps["max_abs_err"], "tolerance": TOLERANCE,
          "ms": ps["ms"], "plain_ms": ps["plain_ms"],
          "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": None,
-         "shape": {"low": list(low.shape), "cache5": list(cache5.shape)}},
+         "shape": {"low": list(low_shape), "cache5": list(cache5_shape)}},
+        {"name": "eval_dot", "route": "cuda", "source": "apsu_tpu_torch/csrc/eval_dot.cu",
+         "replaces": "apsu_tpu/ops/polyeval.py:484", "launches": psu["launches"]["eval_dot"],
+         "max_abs_err": max([psu["dot"]["max_abs_err"]] + [d["max_abs_err"] for d in dot_checks]),
+         "tolerance": TOLERANCE,
+         "ms": psu["dot"]["ms"], "plain_ms": psu["dot"]["plain_ms"],
+         "bound_ms": psu["dot"]["bound_ms"], "bound_by": psu["dot"]["bound_by"],
+         "library_ms": None,
+         "shape": {"powers": psu["dot"]["powers"], "cache": psu["dot"]["cache"]},
+         "other_cases": [{k: d[k] for k in ("case", "powers", "cache", "primes_bits", "ms",
+                                            "plain_ms", "bound_ms")} for d in dot_checks]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def check_dot_cases(gen):
+    """The dot-product kernel against its plain version at the 1M-2048-cmp
+    evaluation shape (B=5, D=72, C=15, Dp=80, its two eval primes), at the
+    same shape on two 30-bit primes, and at Dp=520 (1M-256-288's plane
+    count) on 30-bit primes."""
+    from apsu_tpu_torch.core.nt import gen_ntt_primes
+    from apsu_tpu_torch.core.params import PSUParams
+    from apsu_tpu_torch.core.rns import RnsBase
+    from apsu_tpu_torch.db.receiver_db import ReceiverDB
+
+    params = PSUParams.load_file(str(ROOT / "parameters" / "1M-2048-cmp.json"))
+    db = ReceiverDB(params, device="cuda")
+    eval_base = db.bfv.levels[db.eval_level()]
+    N = params.poly_degree
+    wide = RnsBase(gen_ntt_primes([30, 30], 2 * N), N, "cuda")
+    out = []
+    for label, base, B, C, D, Dp in [
+        ("1M-2048-cmp eval shape", eval_base, 5, 15, 72, 80),
+        ("30-bit primes", wide, 5, 15, 72, 80),
+        ("Dp=520, 30-bit primes", wide, 1, 3, 519, 520),
+    ]:
+        powers = rand_residues((B, D, 2, base.k, N), base.primes, gen)
+        cache = rand_residues((B, C, Dp, base.k, N), base.primes, gen)
+        out.append(check_eval_dot(powers, cache, base, label))
+        del powers, cache
+    return out
+
+
+def non_ps_path(args, gen) -> dict:
+    """Phase 5: run_psu at 1M-2048-cmp at full width, then warm queries."""
+    from apsu_tpu_torch.api.parties import Receiver, Sender, _slots_to_item_blocks
+    from apsu_tpu_torch.api.protocol import DebugEndgame, run_psu
+    from apsu_tpu_torch.core.params import PSUParams
+    from apsu_tpu_torch.db.receiver_db import ReceiverDB
+    from apsu_tpu_torch.mpc.oprf import DebugOprf
+    from apsu_tpu_torch.ops import ntt as ntt_op
+    from apsu_tpu_torch.ops import polyeval
+
+    params = PSUParams.load_file(str(ROOT / "parameters" / "1M-2048-cmp.json"))
+    rng = np.random.default_rng(args.seed)
+    db_items, query = make_sets(rng, DB_ITEMS, QUERY_ITEMS, COMMON_ITEMS)
+    db_set, q_set = as_set(db_items), as_set(query)
+    want = q_set - db_set
+    torch.cuda.reset_peak_memory_stats()
+
+    ntt_op.launches = 0
+    polyeval.dot_launches = 0
+    polyeval.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    db = ReceiverDB(params, DebugOprf(), device="cuda")
+    stats = db.set_data(db_items)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches}
+    snd = Sender(params, DebugOprf(), rng=np.random.default_rng(args.seed + 2), device="cuda")
+    recv = Receiver(params, db, rng=np.random.default_rng(args.seed + 3))
+    ntt_op.launches = 0
+    polyeval.dot_launches = 0
+    res = run_psu(params, query, db_items, sender=snd, receiver=recv)
+    torch.cuda.synchronize()
+    psu_launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches,
+                    "ps_inner": polyeval.launches}
+    transferred, union = as_set(res.transferred), as_set(res.union)
+    psu_ok = transferred == want and union == db_set | q_set and not transferred & db_set
+    emit({"psu_path": "1M-2048-cmp", "db_items": len(db_items), "query_items": len(query),
+          "common_items": COMMON_ITEMS, "db_build_s": build_s,
+          "timings": {**res.timings, "db_build": build_s},
+          "stats": {"n_insertions": stats.n_insertions, "n_caches": stats.n_caches,
+                    "max_bin_load": stats.max_bin_load},
+          "cache_shape": list(db.coeff_cache.shape),
+          "cache_gb": db.coeff_cache.numel() * 4 / 1e9, "eval_level": db.eval_lvl,
+          "build_launches": build_launches, "run_psu_launches": psu_launches,
+          "transferred": len(res.transferred), "union": len(res.union),
+          "expected_transferred": len(want), "oracle_exact": psu_ok})
+    if not psu_ok:
+        raise AssertionError("run_psu set-algebra oracle failed")
+
+    # warm queries on the same request: each response against its own mask
+    req = snd.create_query(query)
+    shapes = []
+    dot_calls = []
+    real_ntt, real_dot = ntt_op.ntt_cuda, polyeval.eval_dot_cuda
+
+    def recording_ntt(x, tb, inverse=False):
+        shapes.append((tuple(x.shape), inverse, tb))
+        return real_ntt(x, tb, inverse)
+
+    def recording_dot(powers, cache, base):
+        dot_calls.append((tuple(powers.shape), cache, base))
+        return real_dot(powers, cache, base)
+
+    ntt_op.launches = 0
+    polyeval.dot_launches = 0
+    runs = []
+    for i in range(WARM + 1):
+        if i == WARM:
+            ntt_op.ntt_cuda, polyeval.eval_dot_cuda = recording_ntt, recording_dot
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resp = recv.run_query(req)
+        torch.cuda.synchronize()
+        runs.append((resp, recv.last_mask, time.perf_counter() - t0))
+        ntt_op.ntt_cuda, polyeval.eval_dot_cuda = real_ntt, real_dot
+    query_launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches}
+    launches = {k: psu_launches[k] + query_launches[k] for k in query_launches}
+
+    def endgame(resp, mask):
+        got = DebugEndgame().run(
+            snd.peqt_matrix(snd.extract_matrix(resp)), _slots_to_item_blocks(params, mask),
+            snd.cuckoo.table, snd.cuckoo.filled)
+        return as_set(got) == want, len(got)
+
+    oracles = [endgame(resp, mask) for resp, mask, _ in runs]
+    control = endgame(runs[-1][0], runs[0][1])
+    warm = [t for _, _, t in runs[1:]]
+    emit({"psu_first_query_s": runs[0][2], "psu_warm_query_s": warm,
+          "psu_warm_best_s": min(warm), "bundles_per_s": db.coeff_cache.shape[0]
+          * db.coeff_cache.shape[1] / min(warm),
+          "oracle_per_query": [list(o) for o in oracles], "control_other_mask": list(control),
+          "launches": launches, "launches_per_query": {k: v / (WARM + 1)
+                                                       for k, v in query_launches.items()},
+          "result_shape": list(runs[-1][0].results.shape),
+          "result_checksums": [int(r.results.to(torch.int64).sum()) for r, _, _ in runs],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if not all(ok for ok, _ in oracles):
+        raise AssertionError("warm-query oracle failed")
+    if control[0]:
+        raise AssertionError("the oracle accepted a response checked against another mask")
+    if launches["eval_dot"] == 0 or launches["ntt"] == 0 or psu_launches["ps_inner"]:
+        raise AssertionError(f"the non-PS path's launches are wrong: {launches}")
+
+    # the kernels at the shapes the last warm query launched them with
+    ntt_summary = check_ntt_shapes(shapes, gen)
+    if ntt_summary["n"] != [params.poly_degree]:
+        raise AssertionError(f"NTT launched at N={ntt_summary['n']}")
+    emit({"psu_ntt_warm_query": ntt_summary})
+    (pw_shape, cache, base), = dot_calls
+    powers = rand_residues(pw_shape, base.primes, gen)
+    dot = check_eval_dot(powers, cache, base, "1M-2048-cmp warm query (DB cache)")
+    if args.profile:
+        profile_query(recv, req)
+    return {"launches": launches, "ntt": ntt_summary, "dot": dot}
 
 
 if __name__ == "__main__":

@@ -59,6 +59,29 @@ def test_ps_inner_kernel_matches_plain(ph, nseg, C, fill):
     assert torch.equal(got, polyeval.ps_inner_plain(low, view, base, C))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,B,C,D,Dp,fill", [
+    ([28, 27], 2, 15, 72, 80, None),      # the 1M-2048-cmp evaluation shape, cut in N
+    ([28, 27], 1, 3, 72, 80, "p-1"),      # C not a multiple of the cache block
+    ([30, 30], 2, 6, 13, 16, "p-1"),      # the widest primes
+    ([29], 1, 5, 519, 520, None),         # Dp > 256 at 29 bits
+    ([27], 3, 1, 1, 8, None),             # one power
+])
+def test_eval_dot_kernel_matches_plain(bits, B, C, D, Dp, fill):
+    _need_cuda()
+    primes = gen_ntt_primes(bits, 64)
+    L, N = len(primes), 512
+    base = RnsBase(primes, N, "cuda")
+    powers = _residues((B, D, 2, L, N), primes, "cuda", seed=D, fill=fill)
+    cache = _residues((B, C, Dp, L, N), primes, "cuda", seed=Dp + C, fill=fill)
+    got = polyeval.eval_dot_cuda(powers, cache, base)
+    assert torch.equal(got, polyeval.eval_dot_plain(powers, cache, base))
+    # plane 0 and the padding planes are never read
+    cache[:, :, 0] = 7
+    cache[:, :, D + 1:] = 11
+    assert torch.equal(polyeval.eval_dot_cuda(powers, cache, base), got)
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     primes = gen_ntt_primes([28], 2 * 1024)
     tb = NttContext(primes, 1024, "cpu")
@@ -69,6 +92,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     cache5 = _residues((1, 2, 4, 1, 1024), primes, "cpu", seed=2)
     with pytest.raises(ValueError, match="CUDA"):
         polyeval.ps_inner_cuda(low, cache5, RnsBase(primes, 1024, "cpu"), 1)
+    powers = _residues((1, 3, 2, 1, 1024), primes, "cpu", seed=3)
+    cache = _residues((1, 2, 8, 1, 1024), primes, "cpu", seed=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        polyeval.eval_dot_cuda(powers, cache, RnsBase(primes, 1024, "cpu"))
 
 
 def test_entry_points_refuse_missing_cuda():
@@ -77,3 +104,7 @@ def test_entry_points_refuse_missing_cuda():
     params = PSUParams.load_file("parameters/256K-2048-com.json")
     with pytest.raises(RuntimeError, match="cuda"):
         BfvContext(params.seal_params)  # device="cuda" is the default
+    with pytest.raises(RuntimeError, match="cuda"):
+        RnsBase([12289], 1024)
+    with pytest.raises(RuntimeError, match="cuda"):
+        NttContext([12289], 1024)

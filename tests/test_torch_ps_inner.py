@@ -1,6 +1,7 @@
 """The port's PS inner sums (plain version on the CPU) against the TPU
-kernel eval_ps_inner_pallas3 in interpret mode, bit for bit, plus the
-wrapper's operand checks."""
+kernels eval_ps_inner_pallas3 (K2) and its earlier versions
+eval_ps_inner_pallas2 (K7) and eval_ps_inner_pallas (K8) in interpret mode,
+bit for bit, plus the wrapper's operand checks."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -8,7 +9,12 @@ import pytest
 import torch
 
 from apsu_tpu.core.nt import gen_ntt_primes
-from apsu_tpu.ops.polyeval import eval_ps_inner_pallas3, plane_count as ref_plane_count
+from apsu_tpu.ops.polyeval import (
+    eval_ps_inner_pallas,
+    eval_ps_inner_pallas2,
+    eval_ps_inner_pallas3,
+    plane_count as ref_plane_count,
+)
 from apsu_tpu_torch.core.mod32 import from_u32, prime_consts, to_u32
 from apsu_tpu_torch.core.rns import RnsBase
 from apsu_tpu_torch.ops.polyeval import plane_count, ps_inner
@@ -38,6 +44,19 @@ def test_ps_inner_matches_pallas3_interpret(ph, nseg, C, fill):
     want = eval_ps_inner_pallas3(
         jnp.asarray(low), jnp.asarray(cache5), c.p, c.p_neg_inv, C, interpret=True
     )
+    got = ps_inner(from_u32(low, "cpu"), from_u32(cache5, "cpu"), base, C)
+    assert np.array_equal(to_u32(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("kind", ["v1", "v2"])
+@pytest.mark.parametrize("ph,nseg,C,fill", [(5, 4, 1, None), (9, 3, 3, None), (17, 2, 2, "p-1")])
+def test_ps_inner_matches_earlier_pallas_versions(kind, ph, nseg, C, fill):
+    """K7 (v2, row-resident) and K8 (v1, segment-chunked) compute K2's
+    function; the port's one kernel serves all three."""
+    kernel = {"v1": eval_ps_inner_pallas, "v2": eval_ps_inner_pallas2}[kind]
+    low, cache5, base = _case(ph, nseg, C, fill=fill, seed=ph * 7 + nseg)
+    c = prime_consts(base.primes)
+    want = kernel(jnp.asarray(low), jnp.asarray(cache5), c.p, c.p_neg_inv, C, interpret=True)
     got = ps_inner(from_u32(low, "cpu"), from_u32(cache5, "cpu"), base, C)
     assert np.array_equal(to_u32(got), np.asarray(want))
 
