@@ -5,13 +5,15 @@
 // Replaces the TPU kernel apsu_tpu/ops/polyeval.py:eval_ps_inner_pallas3
 // (row-resident grid with 14-bit operand splits on the 32-bit VPU).  Here
 // one thread owns one output lane (r, k, l, n), n fastest so that every load
-// coalesces.  Operands are < p < 2^28, so each product is < 2^56 and up to
-// 256 of them sum exactly in a u64 accumulator: the thread keeps two
-// accumulators (one per component), streams its ph-1 cache planes, and ends
-// with one 64-bit Montgomery reduction per accumulator and a final reduction
-// to [0, p).  The result is the canonical R^{-1} * sum a*b mod p, which the
-// reference computes too (it reduces every 8 planes and adds the canonical
-// partial sums), so outputs are bit-identical.
+// coalesces.  The thread keeps two u64 accumulators (one per component),
+// streams its ph-1 cache planes, and ends with one 64-bit Montgomery
+// reduction per accumulator and a final reduction to [0, p).  It takes any
+// prime < 2^30 and any ph: a product is < 2^60, and every FOLD_EVERY
+// products the high word of each sum is reduced mod p (as csrc/eval_dot.cu
+// does), leaving it below p * 2^32 < 2^62 before the next FOLD_EVERY
+// (< 2^63) arrive, so no sum wraps.  The result is the canonical
+// R^{-1} * sum a*b mod p, which the reference computes too (it adds
+// canonical Montgomery partial sums), so outputs are bit-identical.
 //
 // The kernel is bound by device-memory bytes: the cache streams from device
 // memory exactly once (each plane feeds both components), the low powers are
@@ -26,6 +28,14 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr int FOLD_EVERY = 8;
+
+__device__ __forceinline__ uint64_t fold(uint64_t s, uint32_t p) {
+  // s mod p * 2^32 on the high word: the value mod p is unchanged
+  const uint32_t hi = static_cast<uint32_t>(s >> 32) % p;
+  return (static_cast<uint64_t>(hi) << 32) | static_cast<uint32_t>(s);
+}
 
 __device__ __forceinline__ uint32_t redc64(uint64_t s, uint32_t p,
                                            uint32_t p_neg_inv) {
@@ -60,14 +70,18 @@ __global__ void ps_inner_kernel(const uint32_t* __restrict__ low,
 
   const uint32_t* cp = cache + r * cache_row_stride + static_cast<int64_t>(k) * ph * LN + lane;
   const uint32_t* lp = low + b * (ph - 1) * 2 * LN + lane;
+  const uint32_t p = primes[l];
   uint64_t s0 = 0, s1 = 0;
   for (int i = 1; i < ph; ++i) {
     const uint64_t c = cp[i * LN];
     const uint32_t* li = lp + static_cast<int64_t>(i - 1) * 2 * LN;
     s0 += c * li[0];
     s1 += c * li[LN];
+    if (i % FOLD_EVERY == 0) {
+      s0 = fold(s0, p);
+      s1 = fold(s1, p);
+    }
   }
-  const uint32_t p = primes[l];
   const uint32_t pni = p_neg_inv[l];
   uint32_t* o = out + ((r * nseg + k) * 2) * LN + lane;
   o[0] = redc64(s0, p, pni);

@@ -4,11 +4,13 @@ plain PyTorch version.
 Replaces the TPU kernel ``apsu_tpu/ops/ntt4_pallas.py:ntt4_pallas`` (the
 default for every transform at N=8192 with primes < 2^28).  On the H100 the
 transform is bound by device-memory bytes (each residue read and written
-once, plus the twiddle tables): the kernel keeps one row of N residues in
-shared memory for all log2 N stages, so no stage round-trips through device
-memory, and uses lazy Shoup butterflies on ``__umulhi`` (one canonicalization
-at the end).  It takes any power-of-two N up to 8192 and any prime < 2^30, so
-it also covers the other TPU NTT kernels (``ntt_pallas``, ``ntt_pair``,
+once) with the integer work close behind.  Each thread holds 16 residues of
+a row and runs up to four stages on them in registers between exchanges
+through bank-conflict-free shared memory, so a row of 8192 needs three
+exchanges instead of one shared-memory round trip per stage; butterflies
+are lazy Shoup products on ``__umulhi`` with one canonicalization at the
+end.  It takes any power-of-two N up to 8192 and any prime < 2^30, so it
+also covers the other TPU NTT kernels (``ntt_pallas``, ``ntt_pair``,
 ``ntt4_pallas_gl``).
 
 ``ntt(x, tables, inverse)`` launches the kernel for a CUDA tensor and runs the
@@ -45,8 +47,8 @@ def ntt_cuda(x: torch.Tensor, tb, inverse: bool = False) -> torch.Tensor:
         raise TypeError(f"ntt_cuda needs int32 residues, got {x.dtype}")
     if x.dim() < 2 or x.shape[-2] != L or x.shape[-1] != n:
         raise ValueError(f"ntt_cuda needs [..., {L}, {n}], got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("ntt_cuda needs a contiguous tensor")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("ntt_cuda needs a contiguous, 16-byte aligned tensor")
     if not (1 <= tb.logn <= MAX_LOGN) or max(tb.primes) >= 1 << 30:
         raise ValueError("ntt_cuda takes N <= 8192 and primes < 2^30")
     if tb.w_pl_u32.device != x.device:

@@ -10,8 +10,10 @@ Kernel 2 replaces the TPU kernel
 per limb and lane, over both ciphertext components.  On the H100 it is bound
 by device-memory bytes — the coefficient cache (4 GB per query at 16M-4096)
 must stream through once.  The kernel reads it once, in place through its row
-stride (the evaluator's strided view is never copied), accumulates exact
-64-bit sums per output lane and reduces once at the end.
+stride (the evaluator's strided view is never copied), accumulates 64-bit
+sums per output lane and reduces once at the end.  It takes every prime
+< 2^30 and any ph (the TPU kernel needs < 2^28): it reduces the high word of
+each sum mod p every 8 products, so no sum can wrap.
 
 Kernel 3 replaces ``apsu_tpu/ops/polyeval.py:eval_dot_pallas`` (the non-PS
 evaluation):
@@ -40,9 +42,7 @@ if TYPE_CHECKING:
     from apsu_tpu_torch.core.rns import RnsBase
 
 DEG_CHUNK = 8
-MAX_TERMS = 256       # ph - 1 products < 2^56 each fit a u64 accumulator
-MAX_PRIME = 1 << 28   # the PS kernel's operand bound
-MAX_DOT_PRIME = 1 << 30  # the dot kernel's operand bound
+MAX_PRIME = 1 << 30   # both kernels' operand bound: products < 2^60 (fold every 8)
 
 launches = 0  # PS kernel launches since the last reset (set to 0 to reset)
 dot_launches = 0  # dot kernel launches since the last reset
@@ -73,10 +73,8 @@ def _check(low, cache5, base: RnsBase, caches_per_bundle):
         raise ValueError(f"shape mismatch: low {tuple(low.shape)}, cache5 {tuple(cache5.shape)}")
     if R != B * caches_per_bundle:
         raise ValueError(f"cache rows {R} != bundles {B} x caches {caches_per_bundle}")
-    if ph - 1 > MAX_TERMS:
-        raise ValueError(f"ph - 1 = {ph - 1} exceeds the {MAX_TERMS}-term accumulator bound")
     if base.k != L or any(q >= MAX_PRIME for q in base.primes):
-        raise ValueError("ps_inner needs one prime per limb, each < 2^28")
+        raise ValueError("ps_inner needs one prime per limb, each < 2^30")
 
 
 def ps_inner(low, cache5, base: RnsBase, caches_per_bundle: int) -> torch.Tensor:
@@ -127,8 +125,11 @@ def _redc(s, p, pni):
 
 def ps_inner_plain(low, cache5, base: RnsBase, caches_per_bundle: int) -> torch.Tensor:
     """int64 multiply-accumulate with REDC: raw products summed over
-    DEG_CHUNK planes (< 2^59), each chunk folded by one Montgomery reduction
-    into the canonical accumulator — the reference's fold points."""
+    DEG_CHUNK planes, each chunk folded by one Montgomery reduction into the
+    canonical accumulator.  Every prime is < 2^30, so a product is < 2^60
+    and a chunk of 8 sums below 2^63: the int64 sum never wraps, for any ph.
+    The result is the canonical Σ a·b·R^{-1} mod p, which the reference's
+    XLA loop (canonical mont_mul terms added one by one) gives too."""
     _check(low, cache5, base, caches_per_bundle)
     R, nseg, ph, L, N = cache5.shape
     dev = low.device
@@ -159,7 +160,7 @@ def _check_dot(powers, cache, base: RnsBase):
         raise ValueError(f"shape mismatch: powers {tuple(powers.shape)}, cache {tuple(cache.shape)}")
     if Dp % DEG_CHUNK or D + 1 > Dp:
         raise ValueError(f"cache planes {Dp} must be a multiple of {DEG_CHUNK} above {D} powers")
-    if base.k != L or any(q >= MAX_DOT_PRIME for q in base.primes):
+    if base.k != L or any(q >= MAX_PRIME for q in base.primes):
         raise ValueError("eval_dot needs one prime per limb, each < 2^30")
 
 

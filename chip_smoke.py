@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Drive the apsu_tpu_torch port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--seed S] [--profile]
+    python3 chip_smoke.py [--seed S] [--profile] [--compare-ntt SRC ...]
 
 Phases, each printing one JSON object per line:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build
    (``nvcc`` for ``sm_90a``, every ``csrc/*.cu`` in parallel);
 2. each hand-written kernel against its plain PyTorch version on CUDA tensors,
-   bit for bit, at the shapes of the two paths (NTT: eval, query, Bsk, key
+   bit for bit, at the shapes of the paths (NTT: eval, query, Bsk, key
    and plain-modulus bases of 16M-4096 at N=8192 plus a 30-bit prime at
-   N=4096; PS inner sums: one eval chunk of the 4-bundle x 6-cache cache;
-   the dot product: the 1M-2048-cmp shape, 30-bit primes, and 520 planes);
+   N=4096; PS inner sums: one eval chunk of the 4-bundle x 6-cache cache,
+   the 1M-4096-com eval shape on its 30-bit primes, and ph=311 on 256M-1's
+   eval primes; the dot product: the 1M-2048-cmp shape, 30-bit primes, and
+   520 planes);
 3. the PS path at full width: a dense synthetic 16M-4096 ReceiverDB
    (B=4, C=6, cache [4, 6, 1312, 4, 8192] int32 on the card), one encrypted
    query with a relinearization key, ``Receiver.run_query`` once cold, three
@@ -20,7 +22,7 @@ Phases, each printing one JSON object per line:
    no non-match does (and, as a control, a response checked against another
    query's mask must fail);
 4. the kernels again against their plain versions at every shape the warm
-   PS query launched them with, and their per-query device time;
+   PS query launched them with, and their per-query device time and bound;
 5. the in-process PSU at full width on 1M-2048-cmp: 2^20 receiver items
    through ``ReceiverDB.set_data`` (cache [5, 15, 80, 2, 4096] on the card),
    a 2048-item ``Sender`` query of which 1024 items are in the DB, and
@@ -30,7 +32,13 @@ Phases, each printing one JSON object per line:
    against its own mask (exact) and, as a control, one against another
    query's mask (must fail); then the NTT and dot-product kernels against
    their plain versions at the shapes the warm query launched them with;
-6. the ``kernels`` summary line, then ``{"ok": true, "device": ...}``.
+6. the same on the PS set 1M-2048-com (29, 29 and 28-bit eval primes, which
+   the PS inner sums take since they fold their u64 sums), with the NTT and
+   PS inner-sum kernels checked at the warm query's shapes;
+7. with ``--compare-ntt``, each given NTT source (an earlier ``ntt.cu``, or
+   a variant of it) built alone, checked and timed in turns with
+   ``csrc/ntt.cu`` at the two largest NTT shapes (``compare_ntt``);
+8. the ``kernels`` summary line, then ``{"ok": true, "device": ...}``.
 
 Any mismatch, build failure or launch failure raises, and the run exits
 non-zero without the ``ok`` line.  Exits non-zero at once when
@@ -41,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -82,6 +91,32 @@ def cuda_ms(fn, reps: int = 5) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean device milliseconds of ``fn()`` replayed from a CUDA graph of
+    ``reps`` calls: the launches run back to back with no host gaps, so a
+    kernel shorter than the host's launch overhead is timed too."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -147,7 +182,7 @@ def check_ntt(tb, shape, gen, label):
             raise AssertionError(f"NTT kernel != plain ({label}, inverse={inverse}): {err}")
         out["inverse" if inverse else "forward"] = {
             "max_abs_err": err, "tolerance": TOLERANCE,
-            "ms": cuda_ms(lambda: ntt_op.ntt_cuda(x, tb, inverse)),
+            "ms": graph_ms(lambda: ntt_op.ntt_cuda(x, tb, inverse)),
             "plain_ms": cuda_ms(lambda: ntt_op.ntt_plain(x, tb, inverse), reps=2),
         }
     # round trip through the kernel alone
@@ -157,7 +192,7 @@ def check_ntt(tb, shape, gen, label):
           "primes_bits": [p.bit_length() for p in tb.primes], **out})
 
 
-def check_ps_inner(low, cache5, q):
+def check_ps_inner(low, cache5, q, label):
     from apsu_tpu_torch.ops import polyeval
 
     C = cache5.shape[0] // low.shape[0]
@@ -165,12 +200,15 @@ def check_ps_inner(low, cache5, q):
     pl = polyeval.ps_inner_plain(low, cache5, q, C)
     err = max_abs_err(k, pl)
     if err > TOLERANCE or not torch.equal(k, pl):
-        raise AssertionError(f"PS inner kernel != plain: {err}")
+        raise AssertionError(f"PS inner kernel != plain ({label}): {err}")
+    b_ms, b_by = ps_bound_ms(tuple(low.shape), tuple(cache5.shape))
     res = {
-        "check": "ps_inner", "low": list(low.shape), "cache5": list(cache5.shape),
-        "cache5_row_stride": cache5.stride(0), "max_abs_err": err, "tolerance": TOLERANCE,
-        "ms": cuda_ms(lambda: polyeval.ps_inner_cuda(low, cache5, q, C)),
+        "check": "ps_inner", "case": label, "low": list(low.shape), "cache5": list(cache5.shape),
+        "cache5_row_stride": cache5.stride(0), "primes_bits": [p.bit_length() for p in q.primes],
+        "max_abs_err": err, "tolerance": TOLERANCE,
+        "ms": graph_ms(lambda: polyeval.ps_inner_cuda(low, cache5, q, C)),
         "plain_ms": cuda_ms(lambda: polyeval.ps_inner_plain(low, cache5, q, C), reps=1),
+        "bound_ms": b_ms, "bound_by": b_by,
     }
     emit(res)
     return res
@@ -189,7 +227,7 @@ def check_eval_dot(powers, cache, base, label):
         "check": "eval_dot", "case": label, "powers": list(powers.shape),
         "cache": list(cache.shape), "primes_bits": [p.bit_length() for p in base.primes],
         "max_abs_err": err, "tolerance": TOLERANCE,
-        "ms": cuda_ms(lambda: polyeval.eval_dot_cuda(powers, cache, base)),
+        "ms": graph_ms(lambda: polyeval.eval_dot_cuda(powers, cache, base)),
         "plain_ms": cuda_ms(lambda: polyeval.eval_dot_plain(powers, cache, base), reps=2),
         "bound_ms": b_ms, "bound_by": b_by,
     }
@@ -200,14 +238,15 @@ def check_eval_dot(powers, cache, base, label):
 def check_ntt_shapes(shapes, gen):
     """NTT kernel against its plain version at every recorded (shape,
     inverse, tables) launch; returns a summary with the per-query device
-    time and the largest shape's kernel, plain and bound times."""
+    time (each shape replayed from a CUDA graph) and bound, summed over the
+    launches, and the largest shape's kernel, plain and bound times."""
     from apsu_tpu_torch.ops import ntt as ntt_op
 
     distinct = {}
     for shape, inverse, tb in shapes:
         key = (shape, inverse, id(tb))
         distinct.setdefault(key, [shape, inverse, tb, 0])[3] += 1
-    query_ms, big, err = 0.0, None, 0
+    query_ms, query_bound_ms, big, err = 0.0, 0.0, None, 0
     for shape, inverse, tb, count in distinct.values():
         x = rand_residues(shape, tb.primes, gen)
         k = ntt_op.ntt_cuda(x, tb, inverse)
@@ -215,8 +254,9 @@ def check_ntt_shapes(shapes, gen):
         err = max(err, max_abs_err(k, pl))
         if not torch.equal(k, pl):
             raise AssertionError(f"NTT kernel != plain at {shape} inverse={inverse}")
-        ms = cuda_ms(lambda: ntt_op.ntt_cuda(x, tb, inverse))
+        ms = graph_ms(lambda: ntt_op.ntt_cuda(x, tb, inverse))
         query_ms += ms * count
+        query_bound_ms += ntt_bound_ms(shape, tb.L, tb.n, inverse)[0] * count
         if big is None or x.numel() > big[0].numel():
             big = (x, tb, inverse, ms)
         del x, k, pl
@@ -224,7 +264,8 @@ def check_ntt_shapes(shapes, gen):
     plain_ms = cuda_ms(lambda: ntt_op.ntt_plain(x, tb, inverse), reps=2)
     b_ms, b_by = ntt_bound_ms(tuple(x.shape), tb.L, tb.n, inverse)
     summary = {"launches": len(shapes), "distinct_shapes": len(distinct),
-               "device_ms_per_query": query_ms, "max_abs_err": err,
+               "device_ms_per_query": query_ms, "bound_ms_per_query": query_bound_ms,
+               "max_abs_err": err,
                "largest_shape": list(x.shape), "largest_inverse": inverse,
                "largest_ms": ms, "largest_plain_ms": plain_ms, "largest_bound_ms": b_ms,
                "largest_bound_by": b_by, "n": sorted({s[-1] for s, _, _ in shapes})}
@@ -260,8 +301,11 @@ def profile_query(recv, req) -> None:
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:15]
+    ours = {k: {"device_ms": sum(e.self_device_time_total for e in events if k in e.key) / 1e3,
+                "count": sum(e.count for e in events if k in e.key)}
+            for k in ("ntt_kernel", "ps_inner_kernel", "eval_dot_kernel")}
     emit({"profile_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-          "device_idle_share": 1 - busy_ms / wall_ms,
+          "device_idle_share": 1 - busy_ms / wall_ms, "hand_written_kernels": ours,
           "top": [{"name": e.key[:90], "device_ms": e.self_device_time_total / 1e3,
                    "count": e.count} for e in top]})
 
@@ -271,6 +315,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace one warm query with torch.profiler")
+    ap.add_argument("--compare-ntt", nargs="+", type=Path, default=[], metavar="SRC",
+                    help="other ntt.cu sources to check and time in turns with csrc/ntt.cu")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -339,9 +385,10 @@ def main() -> int:
     low = rand_residues((B, ph - 1, 2, q.k, N), q.primes, gen)
     cache = rand_residues((B * C, planes, q.k, N), q.primes, gen)
     cache5 = cache[:, : nseg * ph].reshape(B * C, nseg, ph, q.k, N)
-    check_ps_inner(low, cache5, q)
+    check_ps_inner(low, cache5, q, "16M-4096 eval shape, random cache")
     del low, cache, cache5
     dot_checks = check_dot_cases(gen)
+    ps_checks = check_ps_wide_cases(gen)
     torch.cuda.empty_cache()
 
     # -- phase 3: the PS path at full width ----------------------------------
@@ -425,9 +472,7 @@ def main() -> int:
     low = rand_residues((B, ph - 1, 2, q.k, N), q.primes, gen)
     cache5 = db.coeff_cache.reshape(B * C, planes, q.k, N)[:, : nseg * ph].reshape(
         B * C, nseg, ph, q.k, N)
-    ps = check_ps_inner(low, cache5, q)
-    low_shape, cache5_shape = tuple(low.shape), tuple(cache5.shape)
-    pb_ms, pb_by = ps_bound_ms(low_shape, cache5_shape)
+    ps = check_ps_inner(low, cache5, q, "16M-4096 warm query (DB cache)")
 
     if args.profile:
         profile_query(recv, req)
@@ -436,38 +481,58 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 5: the in-process PSU at 1M-2048-cmp ----------------------------
-    psu = non_ps_path(args, gen)
+    psu = psu_path(args, gen, "1M-2048-cmp")
+    torch.cuda.empty_cache()
 
+    # -- phase 6: the in-process PSU at 1M-2048-com (PS, 29-bit eval primes) --
+    psu_ps = psu_path(args, gen, "1M-2048-com")
+    if args.compare_ntt:
+        torch.cuda.empty_cache()
+        compare_ntt(args.compare_ntt, gen)
+
+    ntt_keys = ("largest_shape", "largest_inverse", "largest_ms", "largest_plain_ms",
+                "largest_bound_ms", "largest_bound_by", "device_ms_per_query",
+                "bound_ms_per_query")
+    ps_keys = ("case", "low", "cache5", "primes_bits", "ms", "plain_ms", "bound_ms")
     kernels = [
         {"name": "ntt", "route": "cuda", "source": "apsu_tpu_torch/csrc/ntt.cu",
          "replaces": "apsu_tpu/ops/ntt4_pallas.py:504 (N=8192), "
                      "apsu_tpu/ops/ntt_pallas.py:118 (N=2048/4096)",
-         "launches": launches["ntt"] + psu["launches"]["ntt"],
+         "launches": launches["ntt"] + psu["launches"]["ntt"] + psu_ps["launches"]["ntt"],
          "launches_by_path": {"ps_16M-4096": launches["ntt"],
-                              "psu_1M-2048-cmp": psu["launches"]["ntt"]},
-         "max_abs_err": max(ntt_ps["max_abs_err"], psu["ntt"]["max_abs_err"]),
+                              "psu_1M-2048-cmp": psu["launches"]["ntt"],
+                              "psu_1M-2048-com": psu_ps["launches"]["ntt"]},
+         "max_abs_err": max(ntt_ps["max_abs_err"], psu["ntt"]["max_abs_err"],
+                            psu_ps["ntt"]["max_abs_err"]),
          "tolerance": TOLERANCE,
          "ms": ntt_ps["largest_ms"], "plain_ms": ntt_ps["largest_plain_ms"],
          "bound_ms": ntt_ps["largest_bound_ms"], "bound_by": ntt_ps["largest_bound_by"],
          "library_ms": None,
          "shape": ntt_ps["largest_shape"], "inverse": ntt_ps["largest_inverse"],
-         "n4096": {k: psu["ntt"][k] for k in ("largest_shape", "largest_inverse", "largest_ms",
-                                              "largest_plain_ms", "largest_bound_ms",
-                                              "largest_bound_by", "device_ms_per_query")}},
+         "device_ms_per_query": ntt_ps["device_ms_per_query"],
+         "bound_ms_per_query": ntt_ps["bound_ms_per_query"],
+         "n4096_cmp": {k: psu["ntt"][k] for k in ntt_keys},
+         "n4096_com": {k: psu_ps["ntt"][k] for k in ntt_keys}},
         {"name": "ps_inner", "route": "cuda", "source": "apsu_tpu_torch/csrc/ps_inner.cu",
-         "replaces": "apsu_tpu/ops/polyeval.py:434", "launches": launches["ps_inner"],
-         "max_abs_err": ps["max_abs_err"], "tolerance": TOLERANCE,
+         "replaces": "apsu_tpu/ops/polyeval.py:434",
+         "launches": launches["ps_inner"] + psu_ps["launches"]["ps_inner"],
+         "launches_by_path": {"ps_16M-4096": launches["ps_inner"],
+                              "psu_1M-2048-com": psu_ps["launches"]["ps_inner"]},
+         "max_abs_err": max(d["max_abs_err"] for d in [ps, psu_ps["ps_inner"]] + ps_checks),
+         "tolerance": TOLERANCE,
          "ms": ps["ms"], "plain_ms": ps["plain_ms"],
-         "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": None,
-         "shape": {"low": list(low_shape), "cache5": list(cache5_shape)}},
+         "bound_ms": ps["bound_ms"], "bound_by": ps["bound_by"], "library_ms": None,
+         "shape": {"low": ps["low"], "cache5": ps["cache5"]},
+         "other_cases": [{k: d[k] for k in ps_keys} for d in [psu_ps["ps_inner"]] + ps_checks]},
         {"name": "eval_dot", "route": "cuda", "source": "apsu_tpu_torch/csrc/eval_dot.cu",
          "replaces": "apsu_tpu/ops/polyeval.py:484", "launches": psu["launches"]["eval_dot"],
-         "max_abs_err": max([psu["dot"]["max_abs_err"]] + [d["max_abs_err"] for d in dot_checks]),
+         "max_abs_err": max([psu["eval_dot"]["max_abs_err"]]
+                            + [d["max_abs_err"] for d in dot_checks]),
          "tolerance": TOLERANCE,
-         "ms": psu["dot"]["ms"], "plain_ms": psu["dot"]["plain_ms"],
-         "bound_ms": psu["dot"]["bound_ms"], "bound_by": psu["dot"]["bound_by"],
+         "ms": psu["eval_dot"]["ms"], "plain_ms": psu["eval_dot"]["plain_ms"],
+         "bound_ms": psu["eval_dot"]["bound_ms"], "bound_by": psu["eval_dot"]["bound_by"],
          "library_ms": None,
-         "shape": {"powers": psu["dot"]["powers"], "cache": psu["dot"]["cache"]},
+         "shape": {"powers": psu["eval_dot"]["powers"], "cache": psu["eval_dot"]["cache"]},
          "other_cases": [{k: d[k] for k in ("case", "powers", "cache", "primes_bits", "ms",
                                             "plain_ms", "bound_ms")} for d in dot_checks]},
     ]
@@ -505,8 +570,119 @@ def check_dot_cases(gen):
     return out
 
 
-def non_ps_path(args, gen) -> dict:
-    """Phase 5: run_psu at 1M-2048-cmp at full width, then warm queries."""
+def check_ps_wide_cases(gen):
+    """The PS inner-sum kernel at wide primes and ph against its plain version:
+    the 1M-4096-com evaluation shape (its three 30-bit eval primes, ph=9,
+    B=5 bundles of 6 caches, 104 planes) and ph=311 at 256M-1's six eval
+    primes (30 and 29 bits), with B=1, C=2 and two segments so that it fits a
+    few hundred MB."""
+    from apsu_tpu_torch.core.params import PSUParams
+    from apsu_tpu_torch.db.receiver_db import ReceiverDB
+    from apsu_tpu_torch.ops import polyeval
+
+    out = []
+    for name, B, C, nseg in [("1M-4096-com", None, 6, None), ("256M-1", 1, 2, 2)]:
+        params = PSUParams.load_file(str(ROOT / "parameters" / f"{name}.json"))
+        db = ReceiverDB(params, device="cuda")
+        q = db.bfv.levels[db.ps_level()]
+        N, qp = params.poly_degree, params.query_params
+        ph = qp.ps_low_degree + 1
+        B = B or params.bundle_idx_count
+        nseg = nseg or polyeval.plane_count(params.table_params.max_items_per_bin,
+                                            qp.ps_low_degree) // ph
+        low = rand_residues((B, ph - 1, 2, q.k, N), q.primes, gen)
+        cache5 = rand_residues((B * C, nseg, ph, q.k, N), q.primes, gen)
+        out.append(check_ps_inner(low, cache5, q, f"{name} eval primes, ph={ph}"))
+        del low, cache5, db
+    return out
+
+
+def compare_ntt(sources, gen) -> None:
+    """Each given NTT source (an earlier commit's ``ntt.cu`` or a variant
+    with the same C entry point ``apsu_ntt``), built alone, against
+    ``ntt_plain``, then timed in turns (A, B, ..., B, A) with the package's
+    kernel at the largest NTT shape of the 16M-4096 query (its key base) and
+    of the 1M-2048-cmp query (its eval base), forward and inverse."""
+    import ctypes
+
+    from apsu_tpu_torch.core.params import PSUParams
+    from apsu_tpu_torch.db.measured_levels import query_level
+    from apsu_tpu_torch.db.receiver_db import ReceiverDB
+    from apsu_tpu_torch.ops import _build
+    from apsu_tpu_torch.ops import ntt as ntt_op
+
+    procs = []
+    for i, src in enumerate(sources):
+        lib = _build.BUILD_ROOT / "compare" / f"{i}" / "lib.so"
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        cmd = [_build._nvcc(), *_build.ARCH_FLAGS, *_build.CFLAGS, "-shared", str(src),
+               "-o", str(lib)]
+        procs.append((src, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True)))
+    def launcher(so, name):
+        def run(x, tb, inverse, out):
+            tw, tw_sh = (tb.winv_pl_u32, tb.winv_sh_u32) if inverse else (tb.w_pl_u32, tb.w_sh_u32)
+            _build.check(so.apsu_ntt(
+                x.data_ptr(), out.data_ptr(), tw.data_ptr(), tw_sh.data_ptr(),
+                tb.p_u32.data_ptr(), tb.ninv_pl_u32.data_ptr(), tb.ninv_sh_u32.data_ptr(),
+                x.numel() // tb.n, tb.L, tb.logn, int(inverse),
+                _build.stream_ptr(x.device)), f"ntt ({name})")
+        return run
+
+    def sass_fwd_8192(lib):
+        """Static SASS instructions of the forward N=8192 kernel, if the
+        source instantiates one per N (fully unrolled, so what a thread runs)."""
+        dump = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+                              capture_output=True, text=True).stdout
+        for f in re.split(r"\n\s*Function : ", dump)[1:]:
+            if re.search(r"ntt_kernelILi13E(?:Li\d+E)?Lb0E", f.split("\n", 1)[0]):
+                return len(re.findall(r"^\s+/\*[0-9a-f]{4}\*/\s+[A-Z@]", f, re.M))
+        return None
+
+    builds = {"csrc/ntt.cu": launcher(_build.lib(), "csrc/ntt.cu")}
+    emit({"compare_ntt_build": "csrc/ntt.cu", "sass_fwd_8192": sass_fwd_8192(_build.build())})
+    for src, lib, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+        emit({"compare_ntt_build": str(src), "sass_fwd_8192": sass_fwd_8192(lib),
+              "max_registers": max(int(r) for r in re.findall(r"Used (\d+) registers", log)),
+              "spill_bytes": sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))})
+        so = ctypes.CDLL(str(lib))
+        so.apsu_ntt.argtypes = _build.lib().apsu_ntt.argtypes
+        so.apsu_ntt.restype = ctypes.c_int
+        builds[str(src)] = launcher(so, src)
+
+    ps = PSUParams.load_file(str(ROOT / "parameters" / "16M-4096.json"))
+    bfv = ReceiverDB(ps, device="cuda").bfv
+    key = bfv._qp_level(query_level(ps, len(bfv.q_primes)))
+    cmp_db = ReceiverDB(PSUParams.load_file(str(ROOT / "parameters" / "1M-2048-cmp.json")),
+                        device="cuda")
+    ev = cmp_db.bfv.levels[cmp_db.eval_level()]
+    for base, shape in [(key, (4, 6, 28, 2, key.k, 8192)), (ev, (72, 5, 2, ev.k, 4096))]:
+        tb = base.ntt
+        x = rand_residues(shape, tb.primes, gen)
+        out = torch.empty_like(x)
+        for inverse in (False, True):
+            want = ntt_op.ntt_plain(x, tb, inverse)
+            for name, run in builds.items():
+                out.zero_()
+                run(x, tb, inverse, out)
+                if not torch.equal(out, want):
+                    raise AssertionError(f"NTT {name} != plain at {shape} inverse={inverse}")
+            del want
+            turns = {name: [] for name in builds}
+            for name in list(builds) + list(builds)[::-1]:
+                turns[name].append(graph_ms(lambda: builds[name](x, tb, inverse, out)))
+            emit({"compare_ntt": list(shape), "inverse": inverse,
+                  "bound_ms": ntt_bound_ms(shape, tb.L, tb.n, inverse)[0],
+                  "ms": {name: sum(t) / len(t) for name, t in turns.items()}})
+        del x, out
+
+
+def psu_path(args, gen, name: str) -> dict:
+    """run_psu at ``name`` at full width, then warm queries: phase 5 on the
+    non-PS 1M-2048-cmp (kernel K3), phase 6 on the PS 1M-2048-com (K2)."""
     from apsu_tpu_torch.api.parties import Receiver, Sender, _slots_to_item_blocks
     from apsu_tpu_torch.api.protocol import DebugEndgame, run_psu
     from apsu_tpu_torch.core.params import PSUParams
@@ -515,7 +691,9 @@ def non_ps_path(args, gen) -> dict:
     from apsu_tpu_torch.ops import ntt as ntt_op
     from apsu_tpu_torch.ops import polyeval
 
-    params = PSUParams.load_file(str(ROOT / "parameters" / "1M-2048-cmp.json"))
+    params = PSUParams.load_file(str(ROOT / "parameters" / f"{name}.json"))
+    ps = params.query_params.ps_low_degree > 0
+    kernel, other = ("ps_inner", "eval_dot") if ps else ("eval_dot", "ps_inner")
     rng = np.random.default_rng(args.seed)
     db_items, query = make_sets(rng, DB_ITEMS, QUERY_ITEMS, COMMON_ITEMS)
     db_set, q_set = as_set(db_items), as_set(query)
@@ -531,18 +709,20 @@ def non_ps_path(args, gen) -> dict:
     stats = db.set_data(db_items)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    build_launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches}
+    build_launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches,
+                      "ps_inner": polyeval.launches}
     snd = Sender(params, DebugOprf(), rng=np.random.default_rng(args.seed + 2), device="cuda")
     recv = Receiver(params, db, rng=np.random.default_rng(args.seed + 3))
     ntt_op.launches = 0
     polyeval.dot_launches = 0
+    polyeval.launches = 0
     res = run_psu(params, query, db_items, sender=snd, receiver=recv)
     torch.cuda.synchronize()
     psu_launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches,
                     "ps_inner": polyeval.launches}
     transferred, union = as_set(res.transferred), as_set(res.union)
     psu_ok = transferred == want and union == db_set | q_set and not transferred & db_set
-    emit({"psu_path": "1M-2048-cmp", "db_items": len(db_items), "query_items": len(query),
+    emit({"psu_path": name, "db_items": len(db_items), "query_items": len(query),
           "common_items": COMMON_ITEMS, "db_build_s": build_s,
           "timings": {**res.timings, "db_build": build_s},
           "stats": {"n_insertions": stats.n_insertions, "n_caches": stats.n_caches,
@@ -558,8 +738,8 @@ def non_ps_path(args, gen) -> dict:
     # warm queries on the same request: each response against its own mask
     req = snd.create_query(query)
     shapes = []
-    dot_calls = []
-    real_ntt, real_dot = ntt_op.ntt_cuda, polyeval.eval_dot_cuda
+    dot_calls, ps_calls = [], []
+    real_ntt, real_dot, real_ps = ntt_op.ntt_cuda, polyeval.eval_dot_cuda, polyeval.ps_inner_cuda
 
     def recording_ntt(x, tb, inverse=False):
         shapes.append((tuple(x.shape), inverse, tb))
@@ -569,19 +749,27 @@ def non_ps_path(args, gen) -> dict:
         dot_calls.append((tuple(powers.shape), cache, base))
         return real_dot(powers, cache, base)
 
+    def recording_ps(low, cache5, base, caches_per_bundle):
+        ps_calls.append((tuple(low.shape), cache5, base))
+        return real_ps(low, cache5, base, caches_per_bundle)
+
     ntt_op.launches = 0
     polyeval.dot_launches = 0
+    polyeval.launches = 0
     runs = []
     for i in range(WARM + 1):
         if i == WARM:
             ntt_op.ntt_cuda, polyeval.eval_dot_cuda = recording_ntt, recording_dot
+            polyeval.ps_inner_cuda = recording_ps
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         resp = recv.run_query(req)
         torch.cuda.synchronize()
         runs.append((resp, recv.last_mask, time.perf_counter() - t0))
         ntt_op.ntt_cuda, polyeval.eval_dot_cuda = real_ntt, real_dot
-    query_launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches}
+        polyeval.ps_inner_cuda = real_ps
+    query_launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches,
+                      "ps_inner": polyeval.launches}
     launches = {k: psu_launches[k] + query_launches[k] for k in query_launches}
 
     def endgame(resp, mask):
@@ -606,20 +794,28 @@ def non_ps_path(args, gen) -> dict:
         raise AssertionError("warm-query oracle failed")
     if control[0]:
         raise AssertionError("the oracle accepted a response checked against another mask")
-    if launches["eval_dot"] == 0 or launches["ntt"] == 0 or psu_launches["ps_inner"]:
-        raise AssertionError(f"the non-PS path's launches are wrong: {launches}")
+    if launches[kernel] == 0 or launches["ntt"] == 0 or launches[other]:
+        raise AssertionError(f"the {name} path's launches are wrong: {launches}")
 
     # the kernels at the shapes the last warm query launched them with
     ntt_summary = check_ntt_shapes(shapes, gen)
     if ntt_summary["n"] != [params.poly_degree]:
         raise AssertionError(f"NTT launched at N={ntt_summary['n']}")
-    emit({"psu_ntt_warm_query": ntt_summary})
-    (pw_shape, cache, base), = dot_calls
-    powers = rand_residues(pw_shape, base.primes, gen)
-    dot = check_eval_dot(powers, cache, base, "1M-2048-cmp warm query (DB cache)")
+    emit({"psu_ntt_warm_query": ntt_summary, "path": name})
+    if ps:
+        checks = []
+        for low_shape, cache5, base in ps_calls:
+            low = rand_residues(low_shape, base.primes, gen)
+            checks.append(check_ps_inner(low, cache5, base, f"{name} warm query (DB cache)"))
+        evals = max(checks, key=lambda c: c["ms"])
+    else:
+        (pw_shape, cache, base), = dot_calls
+        powers = rand_residues(pw_shape, base.primes, gen)
+        evals = check_eval_dot(powers, cache, base, f"{name} warm query (DB cache)")
     if args.profile:
         profile_query(recv, req)
-    return {"launches": launches, "ntt": ntt_summary, "dot": dot}
+    return {"launches": launches, "ntt": ntt_summary, kernel: evals,
+            "launches_per_query": {k: v / (WARM + 1) for k, v in query_launches.items()}}
 
 
 if __name__ == "__main__":

@@ -46,6 +46,57 @@ def test_ntt_kernel_matches_plain(n, bits):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("logn", range(1, 14))
+def test_ntt_kernel_every_size_at_30_bits(logn):
+    """Every N the kernel takes, on a 30-bit prime (4p just below 2^32)."""
+    _need_cuda()
+    n = 1 << logn
+    primes = gen_ntt_primes([30], 2 * max(n, 64))
+    tb = NttContext(primes, n, "cuda")
+    for fill in (None, "p-1"):
+        x = _residues((5, 1, n), primes, "cuda", seed=logn, fill=fill)
+        for inverse in (False, True):
+            assert torch.equal(ntt_op.ntt_cuda(x, tb, inverse), ntt_op.ntt_plain(x, tb, inverse))
+        assert torch.equal(ntt_op.ntt_cuda(ntt_op.ntt_cuda(x, tb), tb, True), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,lead,bits", [
+    (256, (5,), [30, 29, 28]),      # 15 rows; small rows share a block
+    (1024, (3,), [30, 29]),         # 6 rows
+    (64, (7, 3), [29, 28]),         # 42 rows of N=64
+    (8192, (3, 1), [30, 29, 28]),   # 9 rows
+])
+def test_ntt_kernel_ragged_row_counts(n, lead, bits):
+    """Row counts that do not fill the kernel's last block of a limb."""
+    _need_cuda()
+    primes = gen_ntt_primes(bits, 2 * max(n, 64))
+    tb = NttContext(primes, n, "cuda")
+    x = _residues(lead + (len(primes), n), primes, "cuda", seed=n)
+    for inverse in (False, True):
+        assert torch.equal(ntt_op.ntt_cuda(x, tb, inverse), ntt_op.ntt_plain(x, tb, inverse))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,ph,nseg,C,fill", [
+    ([30, 30], 6, 5, 3, None),        # 30-bit primes
+    ([30, 29], 6, 3, 2, "p-1"),       # every product at its largest
+    ([28, 28], 311, 2, 1, None),      # ph - 1 > 256 at narrow primes
+    ([30, 30], 311, 1, 2, "p-1"),     # 256M-1's ph at the widest primes
+])
+def test_ps_inner_kernel_wide(bits, ph, nseg, C, fill):
+    _need_cuda()
+    primes = gen_ntt_primes(bits, 64)
+    B, L, N = 2, len(primes), 256
+    base = RnsBase(primes, N, "cuda")
+    low = _residues((B, ph - 1, 2, L, N), primes, "cuda", seed=ph, fill=fill)
+    big = _residues((B * C, nseg * ph + 3, L, N), primes, "cuda", seed=nseg, fill=fill)
+    view = big[:, : nseg * ph].reshape(B * C, nseg, ph, L, N)
+    got = polyeval.ps_inner_cuda(low, view, base, C)
+    assert torch.equal(got, polyeval.ps_inner_plain(low, view, base, C))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("ph,nseg,C,fill", [(4, 14, 1, None), (45, 3, 2, None), (45, 2, 3, "p-1")])
 def test_ps_inner_kernel_matches_plain(ph, nseg, C, fill):
     _need_cuda()

@@ -79,16 +79,20 @@ def test_ps_inner_reads_strided_cache_view():
 def test_ps_inner_rejects_what_the_kernel_cannot_take():
     low, cache5, base = _case(5, 2, 1, seed=1)
     lt, ct = from_u32(low, "cpu"), from_u32(cache5, "cpu")
-    wide = RnsBase(gen_ntt_primes([29, 26], 64), 128, "cpu")
-    with pytest.raises(ValueError, match="2\\^28"):
-        ps_inner(lt, ct, wide, 1)
+    too_wide = RnsBase(gen_ntt_primes([31, 26], 64), 128, "cpu")
+    with pytest.raises(ValueError, match="2\\^30"):
+        ps_inner(lt, ct, too_wide, 1)
     with pytest.raises(ValueError, match="bundles"):
         ps_inner(lt, ct, base, 2)
     with pytest.raises(TypeError):
         ps_inner(lt.to(torch.int64), ct, base, 1)
-    big = torch.zeros((1, 1, 258, 2, 8), dtype=torch.int32)
-    with pytest.raises(ValueError, match="256"):
-        ps_inner(torch.zeros((1, 257, 2, 2, 8), dtype=torch.int32), big, base, 1)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ps_inner(lt[:, :-1], ct, base, 1)
+    # 29-bit primes and ph - 1 > 256 are taken (the kernel folds its sums)
+    wide = RnsBase(gen_ntt_primes([29, 26], 64), 128, "cpu")
+    assert ps_inner(lt, ct, wide, 1).shape == (2, 2, 2, 2, 128)
+    z = torch.zeros((1, 1, 258, 2, 8), dtype=torch.int32)
+    assert not ps_inner(torch.zeros((1, 257, 2, 2, 8), dtype=torch.int32), z, base, 1).any()
 
 
 @pytest.mark.parametrize("K,ell", [(1304, 44), (51, 3), (4096, 0), (100, 9)])
