@@ -67,14 +67,19 @@ def _default_rng(rng):
 class Sender:
     """Query side (small set)."""
 
-    def __init__(self, params: PSUParams, oprf, rng=None, device="cuda"):
-        """``oprf`` is an ``OprfBackend``.  ``rng`` draws every party secret
-        (secret key, relinearization-key seed and errors, query seed and
-        encryption noise), in the reference's order: a
+    def __init__(self, params: PSUParams, oprf, rng=None, oprf_factory=None,
+                 device="cuda"):
+        """``oprf`` is an ``OprfBackend``, or None when ``oprf_factory`` is
+        given: ``oprf_factory(cuckoo_table_items)`` builds the backend late,
+        in ``create_query``, for the interactive OPRFs that bind the query
+        party's cuckoo table at setup (KKRT, ECDH).  ``rng`` draws every party
+        secret (secret key, relinearization-key seed and errors, query seed
+        and encryption noise, OPRF state), in the reference's order: a
         ``numpy.random.Generator`` or a ``CsRng`` (the default, from OS
         entropy)."""
         self.params = params
         self.oprf = oprf
+        self.oprf_factory = oprf_factory
         self.bfv = BfvContext(params.seal_params, device=device)
         self.rng = _default_rng(rng)
         self.sk = self.bfv.gen_secret_key(self.rng)
@@ -98,6 +103,8 @@ class Sender:
         p = self.params
         tp = p.table_params
         self.cuckoo = cuckoo_insert(items, tp.table_size, tp.hash_func_count, locs=self.locs)
+        if self.oprf_factory is not None:
+            self.oprf = self.oprf_factory(self.cuckoo.table)
         slots = np.arange(tp.table_size, dtype=np.int64)
         prf = self.oprf.eval(self.cuckoo.table, slots)
         felts = felts_from_items(prf, p.felts_per_item, p.item_bit_count_per_felt)

@@ -13,7 +13,10 @@ matching polynomials, batch-encodes them and lifts them into the cache
 K+1 zero-padded to a multiple of 8).  Non-PS sets keep each polynomial's
 constant coefficient in the slot domain (``const_slots [B, C, N]``: the
 evaluator folds it into the mask); PS sets keep the encoded chunk-constant
-polynomials ``ps_const_polys [B, C, nh+1, N]``.  ``set_synthetic_dense``
+polynomials ``ps_const_polys [B, C, nh+1, N]``.  The placement, which
+depends on the item hashes alone, is retained, so ``rebind`` serves a fresh
+OPRF correlation (a resident server's next KKRT query) by deriving only the
+PRF values and the cache again.  ``set_synthetic_dense``
 builds the same cache from random full bins, and ``from_arrays`` carries a
 reference DB's arrays across.
 """
@@ -22,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -57,6 +60,19 @@ class DbStats:
         )
 
 
+class _Placement(NamedTuple):
+    """The OPRF-independent part of a build, in narrow dtypes (~14 bytes a
+    placed pair plus the items)."""
+
+    items: np.ndarray         # [n, 2] uint64, a read-only copy of the input
+    item_idx: np.ndarray      # [m] int32 row of each placed (item, slot) pair
+    slots: np.ndarray         # [m] int32
+    cache_idx: np.ndarray     # [m] int32
+    depth: np.ndarray         # [m] uint16
+    n_caches: int             # the cache axis C
+    slot_counts: np.ndarray   # [table_size] pairs per slot
+
+
 class ReceiverDB:
     def __init__(self, params: PSUParams, oprf=None, bfv: Optional[BfvContext] = None,
                  device="cuda"):
@@ -73,6 +89,7 @@ class ReceiverDB:
         self.eval_lvl: Optional[int] = None
         self.result_lvl: Optional[int] = None
         self.stats: Optional[DbStats] = None
+        self._placement: Optional[_Placement] = None
 
     @classmethod
     def from_arrays(cls, params: PSUParams, arrays: dict, device="cuda",
@@ -90,11 +107,24 @@ class ReceiverDB:
 
     # ------------------------------------------------------------------
     def set_data(self, items: np.ndarray) -> DbStats:
-        """items: [n, 2] uint64 128-bit hashed items.  Builds the cache."""
+        """items: [n, 2] uint64 128-bit hashed items.  Builds the cache.
+
+        The OPRF-independent placement (slots, item indices, caches, depths,
+        slot loads) is computed first and retained, with a read-only copy of
+        ``items``, so that ``rebind`` can serve a fresh OPRF correlation
+        without placing the items again; a later change to the caller's array
+        cannot reach it."""
         if self.oprf is None:
             raise ValueError("set_data needs an OPRF backend")
-        p = self.params
-        tp = p.table_params
+        self._placement = self._place(items)
+        return self._build_from_placement()
+
+    def _place(self, items: np.ndarray) -> _Placement:
+        """Cuckoo locations, duplicate filtering and per-slot ranks: the part
+        of the build that depends on the item hashes alone."""
+        tp = self.params.table_params
+        items = np.array(items, dtype=np.uint64)   # the retained copy
+        items.flags.writeable = False
         n = items.shape[0]
         h = tp.hash_func_count
         K = tp.max_items_per_bin
@@ -128,13 +158,46 @@ class ReceiverDB:
         ranks[order] = np.arange(len(ss)) - first
         cache_idx, depth = ranks // K, ranks % K
         C = int(cache_idx.max()) + 1 if len(cache_idx) else 1
-        slot_counts = np.bincount(slots, minlength=tp.table_size)
+        return _Placement(
+            items=items, item_idx=item_idx.astype(np.int32), slots=slots.astype(np.int32),
+            cache_idx=cache_idx.astype(np.int32), depth=depth.astype(np.uint16), n_caches=C,
+            slot_counts=np.bincount(slots, minlength=tp.table_size),
+        )
 
-        # 3. slot-bound OPRF + felts (on a copy of the kept items: nothing of
-        # the caller's array is retained)
-        prf = self.oprf.eval(items[item_idx], slots)
+    def _build_from_placement(self) -> DbStats:
+        """3. slot-bound OPRF values and felts of the placed pairs under this
+        DB's OPRF, then the dense tensors and the device build."""
+        pl, p = self._placement, self.params
+        slots = pl.slots.astype(np.int64)
+        prf = self.oprf.eval(pl.items[pl.item_idx.astype(np.int64)], slots)
         felts = felts_from_items(prf, p.felts_per_item, p.item_bit_count_per_felt)
-        return self._finish_build(n, slots, felts, cache_idx, depth, C, slot_counts)
+        return self._finish_build(len(pl.items), slots, felts, pl.cache_idx.astype(np.int64),
+                                  pl.depth.astype(np.int64), pl.n_caches, pl.slot_counts)
+
+    @property
+    def can_rebind(self) -> bool:
+        """True iff this DB retains a placement (built by ``set_data``; a DB
+        from ``set_synthetic_dense`` or ``from_arrays`` has none)."""
+        return self._placement is not None
+
+    def rebind(self, oprf) -> "ReceiverDB":
+        """A new ReceiverDB over the same items under a fresh OPRF
+        correlation: only the PRF values, felts, dense tensors and device
+        cache are derived again, from the retained placement (which the two
+        DBs share, read-only).  This DB is left as it is; a caller that has
+        finished with its cache calls ``release_cache`` first, so that the
+        card holds one cache at a time."""
+        if self._placement is None:
+            raise ValueError("no retained placement: rebind needs a DB built by set_data")
+        db = ReceiverDB(self.params, oprf, bfv=self.bfv)
+        db._placement = self._placement
+        db._build_from_placement()
+        return db
+
+    def release_cache(self) -> None:
+        """Drop the device tensors.  The DB answers no query afterwards; its
+        placement stays, so it can still ``rebind``."""
+        self.coeff_cache = self.const_slots = self.ps_const_polys = None
 
     def _finish_build(self, n, slots, felts, cache_idx, depth, C, slot_counts) -> DbStats:
         """Dense host roots/counts tensors, then the device build."""
@@ -225,6 +288,7 @@ class ReceiverDB:
             np.uint32
         )
         counts = np.full((B, C, N), K, dtype=np.int32)
+        self._placement = None   # these roots place no items
         self._build_cache(roots, counts)
         self.stats = DbStats(
             n_items=B * C * K * N,

@@ -1,9 +1,13 @@
-"""Cryptographically secure RNG and seed expansion (port of
-``apsu_tpu/mpc/prg.py:CsRng`` and ``prg_bytes``).
+"""AES-backed PRG, correlation-robust hashing and the party RNG (port of
+``apsu_tpu/mpc/prg.py``).
 
-``cryptography`` is imported inside the functions that use it, so the rest of
-the package (and any caller that passes a ``numpy.random.Generator``) runs on
-a host without it.
+Every hot loop is one C call through the ``cryptography`` package's OpenSSL
+backend over a large numpy buffer: AES-CTR for seed expansion, AES-ECB under
+a fixed public key for the Matyas–Meyer–Oseas hash of the OT extensions, and
+AES under derived public keys for KKRT's pseudorandom code.  ``cryptography``
+is imported inside the functions that use it, so the rest of the package (and
+any caller that passes a ``numpy.random.Generator``) runs on a host without
+it.
 """
 
 from __future__ import annotations
@@ -11,6 +15,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+_FIXED_KEY = bytes(range(16))
 
 
 class CsRng:
@@ -85,3 +91,66 @@ def prg_bytes(seed: bytes, n: int) -> np.ndarray:
         key = key.ljust(32, b"\0")
     enc = Cipher(algorithms.AES(key), modes.CTR(b"\0" * 16)).encryptor()
     return np.frombuffer(enc.update(b"\0" * n), dtype=np.uint8).copy()
+
+
+def prg_bits(seed: bytes, nbits: int) -> np.ndarray:
+    """n pseudorandom bits as a uint8 0/1 array."""
+    nbytes = (nbits + 7) // 8
+    return np.unpackbits(prg_bytes(seed, nbytes))[:nbits]
+
+
+def _ecb(key: bytes, blocks: np.ndarray) -> np.ndarray:
+    """AES-ECB under ``key`` over [n, 16·w] uint8 rows (one C call)."""
+    from cryptography.hazmat.primitives.ciphers import Cipher, algorithms, modes
+
+    enc = Cipher(algorithms.AES(key), modes.ECB()).encryptor()
+    return np.frombuffer(enc.update(blocks.tobytes()), dtype=np.uint8).reshape(blocks.shape)
+
+
+def aes_ecb_fixed(blocks: np.ndarray) -> np.ndarray:
+    """AES-ECB under the fixed key over [n, 16] uint8 blocks (one C call)."""
+    return _ecb(_FIXED_KEY, np.ascontiguousarray(blocks, dtype=np.uint8))
+
+
+def mmo_hash(blocks: np.ndarray, tweak: int = 0) -> np.ndarray:
+    """Matyas–Meyer–Oseas: H(x) = AES_fk(x ⊕ t) ⊕ (x ⊕ t), vectorized.
+
+    blocks: [n, 16] uint8.  The tweak is an 8-byte little-endian counter
+    XORed into the first 8 bytes — instance separation for OT pads.
+    """
+    x = np.ascontiguousarray(blocks, dtype=np.uint8).copy()
+    if tweak:
+        t = np.frombuffer(int(tweak).to_bytes(8, "little"), dtype=np.uint8)
+        x[:, :8] ^= t
+    return aes_ecb_fixed(x) ^ x
+
+
+def mmo_hash_indexed(blocks: np.ndarray) -> np.ndarray:
+    """Per-row-index tweaked MMO: H(i, x_i) for rows i (OT instance binding)."""
+    x = np.ascontiguousarray(blocks, dtype=np.uint8).copy()
+    n = x.shape[0]
+    idx = np.arange(n, dtype=np.uint64)
+    x[:, :8] ^= idx.view(np.uint8).reshape(n, 8)
+    return aes_ecb_fixed(x) ^ x
+
+
+def aes_code(inputs: np.ndarray, width_blocks: int) -> np.ndarray:
+    """Pseudorandom code C(x): [n, 16] -> [n, 16·width_blocks] uint8.
+
+    KKRT's code (eprint 2016/799 uses a PRC): output block w is AES of the
+    input block under the public key ``bytes([w + 1]) * 16``, XORed with the
+    input.
+    """
+    x = np.ascontiguousarray(inputs, dtype=np.uint8)
+    return np.concatenate(
+        [_ecb(bytes([w + 1]) * 16, x) ^ x for w in range(width_blocks)], axis=1
+    )
+
+
+def pack_bits_rows(bits: np.ndarray) -> np.ndarray:
+    """[r, c] 0/1 uint8 -> [r, ceil(c/8)] packed (little-endian bit order)."""
+    return np.packbits(bits, axis=-1, bitorder="little")
+
+
+def unpack_bits_rows(packed: np.ndarray, c: int) -> np.ndarray:
+    return np.unpackbits(packed, axis=-1, bitorder="little", count=c)

@@ -1,11 +1,14 @@
-"""Build-on-first-use of the CUDA kernels in ``csrc/`` and their ctypes binding.
+"""Build-on-first-use of the package's native code and its ctypes binding.
 
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process (all started
 together) for ``sm_90a`` into an object file, and the objects are linked into
-one shared library with a plain C interface.  The build lands in
-``apsu_tpu_torch/_build/<hash>/`` keyed by a hash of the sources and flags, so
-a fresh checkout builds once and an edited source rebuilds.  A missing
-``nvcc`` or a failed compile raises: there is no fallback.
+one shared library with a plain C interface.  The host libraries of the MPC
+engine (``mpc/native/*.cpp``) are compiled by ``g++`` (``build_host``).  Each
+build lands in ``apsu_tpu_torch/_build/<hash>/`` keyed by a hash of its
+sources and flags, so a fresh checkout builds once and an edited source
+rebuilds; a build is made in a private directory and published by one atomic
+rename, so processes that build at once never see a partial library.  A
+missing compiler or a failed compile raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HOST_FLAGS = ["-O2", "-shared", "-fPIC", "-fopenmp"]
 
 _lib = None
 build_seconds: float | None = None   # wall time of this process's build
@@ -40,26 +44,37 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _digest() -> str:
+def _digest(sources, flags) -> str:
     h = hashlib.sha256()
-    for f in sorted(CSRC.glob("*.cu*")):
+    for f in sorted(sources):
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(ARCH_FLAGS + CFLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
+
+
+def _private_dir() -> Path:
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    return Path(tempfile.mkdtemp(prefix="build-", dir=BUILD_ROOT))
+
+
+def _publish(tmp: Path, out_dir: Path) -> None:
+    try:
+        os.replace(tmp, out_dir)   # atomic publish; a concurrent build wins
+    except OSError:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def build() -> Path:
     """Compile (if needed) and return the path of the shared library."""
     global build_seconds, ptxas_log
-    out_dir = BUILD_ROOT / _digest()
+    out_dir = BUILD_ROOT / _digest(CSRC.glob("*.cu*"), ARCH_FLAGS + CFLAGS)
     lib_path = out_dir / "libapsu_kernels.so"
     if lib_path.exists():
         return lib_path
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix="build-", dir=BUILD_ROOT))
+    tmp = _private_dir()
     procs = []
     for src in sorted(CSRC.glob("*.cu")):
         obj = tmp / (src.stem + ".o")
@@ -80,12 +95,29 @@ def build() -> Path:
     )
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-    try:
-        os.replace(tmp, out_dir)   # atomic publish; a concurrent build wins
-    except OSError:
-        shutil.rmtree(tmp, ignore_errors=True)
+    _publish(tmp, out_dir)
     build_seconds = time.perf_counter() - t0
     ptxas_log = "\n".join(logs)
+    return lib_path
+
+
+def build_host(src: Path) -> Path:
+    """Compile (if needed) one C++ source of the MPC engine with ``g++`` and
+    return the path of its shared library ``lib<stem>.so``."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"g++ not found: {src.name} cannot be built")
+    out_dir = BUILD_ROOT / _digest([src], ["g++", *HOST_FLAGS])
+    lib_path = out_dir / f"lib{src.stem}.so"
+    if lib_path.exists():
+        return lib_path
+    tmp = _private_dir()
+    res = subprocess.run([cxx, *HOST_FLAGS, str(src), "-o", str(tmp / lib_path.name)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if res.returncode != 0:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise RuntimeError(f"g++ failed on {src.name}:\n{res.stdout}")
+    _publish(tmp, out_dir)
     return lib_path
 
 

@@ -35,10 +35,27 @@ Phases, each printing one JSON object per line:
 6. the same on the PS set 1M-2048-com (29, 29 and 28-bit eval primes, which
    the PS inner sums take since they fold their u64 sums), with the NTT and
    PS inner-sum kernels checked at the warm query's shapes;
-7. with ``--compare-ntt``, each given NTT source (an earlier ``ntt.cu``, or
+7. the real protocol in one process, ``run_psu_mpc`` at 1M-2048-cmp, full
+   width: 2^20 DB items, 2048 query items of which 1024 are in the DB, the
+   KKRT OPRF during the DB build, the DDH PEQT and the OT of the difference
+   set, both parties on the card; the set algebra (and, as a control, the
+   union against another query's set, which must fail), the phase times,
+   bytes on the wire, the OT flavours used, each kernel's launches, and the
+   kernels against their plain versions at the shapes this run launched;
+8. the two-process CLI on the card at 1M-2048-com: ``receiver_cli --serve 2``
+   on 2^20 CSV items and ``sender_cli --peqt osn`` with two 2048-item query
+   files on one TCP connection to a free localhost port, so the second query
+   goes through OP_REBIND; each union.csv against the set algebra of the
+   CSVs, the receiver's timings (``rebind`` among them), its device memory
+   around the rebind (the consumed cache freed first) and its peak, both
+   processes' kernel launches and OT flavours, and the kernels against their
+   plain versions at every call either process made (each process runs its
+   CLI module under ``chip_smoke.py --cli-child RECORD MODULE ARGS``, which
+   records each call's shapes, strides and primes);
+9. with ``--compare-ntt``, each given NTT source (an earlier ``ntt.cu``, or
    a variant of it) built alone, checked and timed in turns with
    ``csrc/ntt.cu`` at the two largest NTT shapes (``compare_ntt``);
-8. the ``kernels`` summary line, then ``{"ok": true, "device": ...}``.
+10. the ``kernels`` summary line, then ``{"ok": true, "device": ...}``.
 
 Any mismatch, build failure or launch failure raises, and the run exits
 non-zero without the ``ok`` line.  Exits non-zero at once when
@@ -48,10 +65,17 @@ non-zero without the ``ok`` line.  Exits non-zero at once when
 from __future__ import annotations
 
 import argparse
+import ast
+import contextlib
 import json
+import logging
+import os
 import re
+import socket
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -74,6 +98,9 @@ WARM = 3
 DB_ITEMS = 1 << 20
 QUERY_ITEMS = 2048
 COMMON_ITEMS = 1024
+# the two-process CLI: each process's time limit (seconds) and device
+CLI_TIMEOUT = 420
+CLI_DEVICE = "cuda"
 
 
 def emit(obj) -> None:
@@ -272,6 +299,96 @@ def check_ntt_shapes(shapes, gen):
     return summary
 
 
+@contextlib.contextmanager
+def recording_kernels(calls: dict, on: bool = True, keep: bool = True):
+    """While active (and ``on``), each call of a kernel's CUDA wrapper also
+    appends its arguments to ``calls``: "ntt" gets (shape, inverse, tables),
+    "eval_dot" (powers shape, cache, base) and "ps_inner" (low shape, cache5,
+    base).  With ``keep`` False a call holds no tensor and no tables, only
+    what describes them: the cache's (shape, strides) and the tables' or
+    base's (primes, N), so a whole process is recorded without keeping its
+    device memory alive (``cli_child``).  The counts of launches are the
+    wrappers' own."""
+    from apsu_tpu_torch.ops import ntt as ntt_op
+    from apsu_tpu_torch.ops import polyeval
+
+    real_ntt, real_dot, real_ps = ntt_op.ntt_cuda, polyeval.eval_dot_cuda, polyeval.ps_inner_cuda
+    held = (lambda t: t) if keep else (lambda t: (tuple(t.shape), tuple(t.stride())))
+    tables = (lambda tb: tb) if keep else (lambda tb: (tuple(tb.primes), tb.n))
+
+    def ntt(x, tb, inverse=False):
+        calls["ntt"].append((tuple(x.shape), inverse, tables(tb)))
+        return real_ntt(x, tb, inverse)
+
+    def dot(powers, cache, base):
+        calls["eval_dot"].append((tuple(powers.shape), held(cache), tables(base)))
+        return real_dot(powers, cache, base)
+
+    def ps(low, cache5, base, caches_per_bundle):
+        calls["ps_inner"].append((tuple(low.shape), held(cache5), tables(base)))
+        return real_ps(low, cache5, base, caches_per_bundle)
+
+    if on:
+        ntt_op.ntt_cuda, polyeval.eval_dot_cuda, polyeval.ps_inner_cuda = ntt, dot, ps
+    try:
+        yield calls
+    finally:
+        ntt_op.ntt_cuda, polyeval.eval_dot_cuda, polyeval.ps_inner_cuda = real_ntt, real_dot, real_ps
+
+
+def kernel_calls() -> dict:
+    return {"ntt": [], "eval_dot": [], "ps_inner": []}
+
+
+def cli_child(out: str, module: str, argv: list) -> int:
+    """``python -m module *argv`` in this process, with every kernel call
+    recorded (``recording_kernels`` without tensors); the calls are written
+    to ``out`` as JSON for ``replay_calls``."""
+    import runpy
+
+    sys.path.insert(0, str(ROOT))
+    calls = kernel_calls()
+    sys.argv = [module, *argv]
+    with recording_kernels(calls, keep=False):
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
+    Path(out).write_text(json.dumps(calls))
+    return 0
+
+
+def replay_calls(recs: list, gen, label: str) -> dict:
+    """The NTT and PS inner-sum kernels against their plain versions at every
+    call that ``cli_child`` recorded in ``recs`` (one dict a process; the CLI
+    path launches no dot product, which ``cli_path`` checks): random residues
+    of each recorded shape, each cache laid out with its recorded strides,
+    the tables and bases rebuilt from the recorded primes."""
+    from apsu_tpu_torch.core.rns import RnsBase
+
+    bases = {}
+
+    def base(primes, n):
+        key = (tuple(primes), n)
+        if key not in bases:
+            bases[key] = RnsBase(list(primes), n, "cuda")
+        return bases[key]
+
+    def distinct(kind):
+        return {json.dumps(c): c for rec in recs for c in rec[kind]}.values()
+
+    ntt = [(tuple(s), inv, base(*pn).ntt) for rec in recs for s, inv, pn in rec["ntt"]]
+    out = {"ntt": check_ntt_shapes(ntt, gen), "ps_inner": []}
+    for low_shape, (shape, stride), pn in distinct("ps_inner"):
+        q = base(*pn)
+        R, nseg, ph, L, N = shape
+        rows = rand_residues((R, stride[0] // (L * N), L, N), q.primes, gen)
+        cache5 = rows[:, : nseg * ph].reshape(shape)
+        if list(cache5.stride()) != stride:
+            raise AssertionError(f"cannot lay out the recorded cache {shape} {stride}")
+        low = rand_residues(tuple(low_shape), q.primes, gen)
+        out["ps_inner"].append(check_ps_inner(low, cache5, q, f"{label} (recorded)"))
+        del rows, cache5, low
+    return out
+
+
 def make_sets(rng, n_db, n_query, n_common):
     """Random 128-bit item sets with a planted intersection."""
     db = rng.integers(0, 1 << 64, size=(n_db, 2), dtype=np.uint64)
@@ -344,8 +461,12 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    import cryptography
+
+    cxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, check=True)
     emit({"gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-          "python": sys.version.split()[0]})
+          "python": sys.version.split()[0], "cryptography": cryptography.__version__,
+          "g++": cxx.stdout.splitlines()[0]})
 
     t0 = time.perf_counter()
     _build.lib()
@@ -413,12 +534,7 @@ def main() -> int:
           "result_level": db.result_lvl, "query_level": ql,
           "planted_matches": int(lane_match.sum())})
 
-    shapes = []  # (shape, inverse, tables) of every NTT launch in the warm query
-    real_ntt = ntt_op.ntt_cuda
-
-    def recording_ntt(x, tb, inverse=False):
-        shapes.append((tuple(x.shape), inverse, tb))
-        return real_ntt(x, tb, inverse)
+    calls = kernel_calls()  # the kernel launches of the last warm query
 
     def oracle(resp, mask):
         res = Ciphertext(resp.results, is_ntt=False, level=resp.eval_level)
@@ -437,14 +553,12 @@ def main() -> int:
     ntt_op.launches = 0
     polyeval.launches = 0
     for i in range(queries):
-        if i == WARM:
-            ntt_op.ntt_cuda = recording_ntt
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        resp = recv.run_query(req, timings=timings if i == queries - 1 else None)
-        torch.cuda.synchronize()
-        runs.append((resp, recv.last_mask, time.perf_counter() - t0))
-        ntt_op.ntt_cuda = real_ntt
+        with recording_kernels(calls, on=i == WARM):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resp = recv.run_query(req, timings=timings if i == queries - 1 else None)
+            torch.cuda.synchronize()
+            runs.append((resp, recv.last_mask, time.perf_counter() - t0))
     launches = {"ntt": ntt_op.launches, "ps_inner": polyeval.launches}
     oracles = [oracle(resp, mask) for resp, mask, _ in runs]
     # control: the last warm response against the split query's mask
@@ -466,7 +580,7 @@ def main() -> int:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
 
     # -- phase 4: kernels at every shape the warm query used -----------------
-    ntt_ps = check_ntt_shapes(shapes, gen)
+    ntt_ps = check_ntt_shapes(calls["ntt"], gen)
     emit({"ntt_warm_query": ntt_ps})
 
     low = rand_residues((B, ph - 1, 2, q.k, N), q.primes, gen)
@@ -476,8 +590,9 @@ def main() -> int:
 
     if args.profile:
         profile_query(recv, req)
-    # release the PS path's 4 GB cache before the next path
-    del recv, req, db, cache5, low, runs, resp
+    # release the PS path's 4 GB cache before the next path (the recorded
+    # K2 call holds a view of it)
+    del recv, req, db, cache5, low, runs, resp, calls
     torch.cuda.empty_cache()
 
     # -- phase 5: the in-process PSU at 1M-2048-cmp ----------------------------
@@ -486,6 +601,14 @@ def main() -> int:
 
     # -- phase 6: the in-process PSU at 1M-2048-com (PS, 29-bit eval primes) --
     psu_ps = psu_path(args, gen, "1M-2048-com")
+    torch.cuda.empty_cache()
+
+    # -- phase 7: run_psu_mpc at 1M-2048-cmp (KKRT, DDH PEQT, OT) -------------
+    mpc = mpc_path(args, gen)
+    torch.cuda.empty_cache()
+
+    # -- phase 8: the two-process CLI at 1M-2048-com (OSN PEQT, OP_REBIND) ----
+    cli = cli_path(args, gen)
     if args.compare_ntt:
         torch.cuda.empty_cache()
         compare_ntt(args.compare_ntt, gen)
@@ -498,12 +621,16 @@ def main() -> int:
         {"name": "ntt", "route": "cuda", "source": "apsu_tpu_torch/csrc/ntt.cu",
          "replaces": "apsu_tpu/ops/ntt4_pallas.py:504 (N=8192), "
                      "apsu_tpu/ops/ntt_pallas.py:118 (N=2048/4096)",
-         "launches": launches["ntt"] + psu["launches"]["ntt"] + psu_ps["launches"]["ntt"],
+         "launches": launches["ntt"] + psu["launches"]["ntt"] + psu_ps["launches"]["ntt"]
+         + mpc["launches"]["ntt"] + cli["launches"]["ntt"],
          "launches_by_path": {"ps_16M-4096": launches["ntt"],
                               "psu_1M-2048-cmp": psu["launches"]["ntt"],
-                              "psu_1M-2048-com": psu_ps["launches"]["ntt"]},
+                              "psu_1M-2048-com": psu_ps["launches"]["ntt"],
+                              "psu_mpc_1M-2048-cmp": mpc["launches"]["ntt"],
+                              "cli_1M-2048-com": cli["launches"]["ntt"]},
          "max_abs_err": max(ntt_ps["max_abs_err"], psu["ntt"]["max_abs_err"],
-                            psu_ps["ntt"]["max_abs_err"]),
+                            psu_ps["ntt"]["max_abs_err"], mpc["ntt"]["max_abs_err"],
+                            cli["ntt"]["max_abs_err"]),
          "tolerance": TOLERANCE,
          "ms": ntt_ps["largest_ms"], "plain_ms": ntt_ps["largest_plain_ms"],
          "bound_ms": ntt_ps["largest_bound_ms"], "bound_by": ntt_ps["largest_bound_by"],
@@ -512,21 +639,30 @@ def main() -> int:
          "device_ms_per_query": ntt_ps["device_ms_per_query"],
          "bound_ms_per_query": ntt_ps["bound_ms_per_query"],
          "n4096_cmp": {k: psu["ntt"][k] for k in ntt_keys},
-         "n4096_com": {k: psu_ps["ntt"][k] for k in ntt_keys}},
+         "n4096_com": {k: psu_ps["ntt"][k] for k in ntt_keys},
+         "psu_mpc_1M-2048-cmp": {k: mpc["ntt"][k] for k in ntt_keys},
+         "cli_1M-2048-com": {k: cli["ntt"][k] for k in ntt_keys + ("distinct_shapes",)}},
         {"name": "ps_inner", "route": "cuda", "source": "apsu_tpu_torch/csrc/ps_inner.cu",
          "replaces": "apsu_tpu/ops/polyeval.py:434",
-         "launches": launches["ps_inner"] + psu_ps["launches"]["ps_inner"],
+         "launches": launches["ps_inner"] + psu_ps["launches"]["ps_inner"]
+         + cli["launches"]["ps_inner"],
          "launches_by_path": {"ps_16M-4096": launches["ps_inner"],
-                              "psu_1M-2048-com": psu_ps["launches"]["ps_inner"]},
-         "max_abs_err": max(d["max_abs_err"] for d in [ps, psu_ps["ps_inner"]] + ps_checks),
+                              "psu_1M-2048-com": psu_ps["launches"]["ps_inner"],
+                              "cli_1M-2048-com": cli["launches"]["ps_inner"]},
+         "max_abs_err": max(d["max_abs_err"]
+                            for d in [ps, psu_ps["ps_inner"]] + ps_checks + cli["ps_inner"]),
          "tolerance": TOLERANCE,
          "ms": ps["ms"], "plain_ms": ps["plain_ms"],
          "bound_ms": ps["bound_ms"], "bound_by": ps["bound_by"], "library_ms": None,
          "shape": {"low": ps["low"], "cache5": ps["cache5"]},
-         "other_cases": [{k: d[k] for k in ps_keys} for d in [psu_ps["ps_inner"]] + ps_checks]},
+         "other_cases": [{k: d[k] for k in ps_keys}
+                         for d in [psu_ps["ps_inner"]] + ps_checks + cli["ps_inner"]]},
         {"name": "eval_dot", "route": "cuda", "source": "apsu_tpu_torch/csrc/eval_dot.cu",
-         "replaces": "apsu_tpu/ops/polyeval.py:484", "launches": psu["launches"]["eval_dot"],
-         "max_abs_err": max([psu["eval_dot"]["max_abs_err"]]
+         "replaces": "apsu_tpu/ops/polyeval.py:484",
+         "launches": psu["launches"]["eval_dot"] + mpc["launches"]["eval_dot"],
+         "launches_by_path": {"psu_1M-2048-cmp": psu["launches"]["eval_dot"],
+                              "psu_mpc_1M-2048-cmp": mpc["launches"]["eval_dot"]},
+         "max_abs_err": max([psu["eval_dot"]["max_abs_err"], mpc["eval_dot"]["max_abs_err"]]
                             + [d["max_abs_err"] for d in dot_checks]),
          "tolerance": TOLERANCE,
          "ms": psu["eval_dot"]["ms"], "plain_ms": psu["eval_dot"]["plain_ms"],
@@ -534,7 +670,8 @@ def main() -> int:
          "library_ms": None,
          "shape": {"powers": psu["eval_dot"]["powers"], "cache": psu["eval_dot"]["cache"]},
          "other_cases": [{k: d[k] for k in ("case", "powers", "cache", "primes_bits", "ms",
-                                            "plain_ms", "bound_ms")} for d in dot_checks]},
+                                            "plain_ms", "bound_ms")}
+                         for d in dot_checks + [mpc["eval_dot"]]]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -737,37 +874,18 @@ def psu_path(args, gen, name: str) -> dict:
 
     # warm queries on the same request: each response against its own mask
     req = snd.create_query(query)
-    shapes = []
-    dot_calls, ps_calls = [], []
-    real_ntt, real_dot, real_ps = ntt_op.ntt_cuda, polyeval.eval_dot_cuda, polyeval.ps_inner_cuda
-
-    def recording_ntt(x, tb, inverse=False):
-        shapes.append((tuple(x.shape), inverse, tb))
-        return real_ntt(x, tb, inverse)
-
-    def recording_dot(powers, cache, base):
-        dot_calls.append((tuple(powers.shape), cache, base))
-        return real_dot(powers, cache, base)
-
-    def recording_ps(low, cache5, base, caches_per_bundle):
-        ps_calls.append((tuple(low.shape), cache5, base))
-        return real_ps(low, cache5, base, caches_per_bundle)
-
+    calls = kernel_calls()  # the kernel launches of the last warm query
     ntt_op.launches = 0
     polyeval.dot_launches = 0
     polyeval.launches = 0
     runs = []
     for i in range(WARM + 1):
-        if i == WARM:
-            ntt_op.ntt_cuda, polyeval.eval_dot_cuda = recording_ntt, recording_dot
-            polyeval.ps_inner_cuda = recording_ps
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        resp = recv.run_query(req)
-        torch.cuda.synchronize()
-        runs.append((resp, recv.last_mask, time.perf_counter() - t0))
-        ntt_op.ntt_cuda, polyeval.eval_dot_cuda = real_ntt, real_dot
-        polyeval.ps_inner_cuda = real_ps
+        with recording_kernels(calls, on=i == WARM):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resp = recv.run_query(req)
+            torch.cuda.synchronize()
+            runs.append((resp, recv.last_mask, time.perf_counter() - t0))
     query_launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches,
                       "ps_inner": polyeval.launches}
     launches = {k: psu_launches[k] + query_launches[k] for k in query_launches}
@@ -798,18 +916,18 @@ def psu_path(args, gen, name: str) -> dict:
         raise AssertionError(f"the {name} path's launches are wrong: {launches}")
 
     # the kernels at the shapes the last warm query launched them with
-    ntt_summary = check_ntt_shapes(shapes, gen)
+    ntt_summary = check_ntt_shapes(calls["ntt"], gen)
     if ntt_summary["n"] != [params.poly_degree]:
         raise AssertionError(f"NTT launched at N={ntt_summary['n']}")
     emit({"psu_ntt_warm_query": ntt_summary, "path": name})
     if ps:
         checks = []
-        for low_shape, cache5, base in ps_calls:
+        for low_shape, cache5, base in calls["ps_inner"]:
             low = rand_residues(low_shape, base.primes, gen)
             checks.append(check_ps_inner(low, cache5, base, f"{name} warm query (DB cache)"))
         evals = max(checks, key=lambda c: c["ms"])
     else:
-        (pw_shape, cache, base), = dot_calls
+        (pw_shape, cache, base), = calls["eval_dot"]
         powers = rand_residues(pw_shape, base.primes, gen)
         evals = check_eval_dot(powers, cache, base, f"{name} warm query (DB cache)")
     if args.profile:
@@ -818,5 +936,212 @@ def psu_path(args, gen, name: str) -> dict:
             "launches_per_query": {k: v / (WARM + 1) for k, v in query_launches.items()}}
 
 
+class _Records(logging.Handler):
+    """Keeps the messages logged while it is attached."""
+
+    def __init__(self):
+        super().__init__(logging.DEBUG)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def ot_flavors(messages) -> list:
+    """The OT extensions a run made, from ``mpc/otext.py``'s debug lines:
+    [OTs, flavour, k, role] each."""
+    out = []
+    for msg in messages:
+        m = re.search(r"OT extension: (\d+) OTs, (\w+) k=(\d+) \((\w+)\)", msg)
+        if m:
+            out.append([int(m[1]), m[2], int(m[3]), m[4]])
+    return out
+
+
+def mpc_path(args, gen) -> dict:
+    """Phase 7: ``run_psu_mpc`` at 1M-2048-cmp, full width, with the KKRT
+    OPRF, the DDH PEQT and union mode; both parties' kernel calls recorded
+    and the kernels checked at those shapes afterwards."""
+    from apsu_tpu_torch.api.protocol import run_psu_mpc
+    from apsu_tpu_torch.core.params import PSUParams
+    from apsu_tpu_torch.ops import ntt as ntt_op
+    from apsu_tpu_torch.ops import polyeval
+
+    name = "1M-2048-cmp"
+    params = PSUParams.load_file(str(ROOT / "parameters" / f"{name}.json"))
+    db_items, query = make_sets(np.random.default_rng(args.seed), DB_ITEMS, QUERY_ITEMS,
+                                COMMON_ITEMS)
+    _, other = make_sets(np.random.default_rng(args.seed + 7), 16, QUERY_ITEMS, 0)
+    db_set, q_set = as_set(db_items), as_set(query)
+
+    calls = kernel_calls()
+    records = _Records()
+    logger = logging.getLogger("apsu_tpu_torch")
+    level = logger.level
+    logger.addHandler(records)
+    logger.setLevel(logging.DEBUG)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ntt_op.launches = 0
+    polyeval.dot_launches = 0
+    polyeval.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with recording_kernels(calls):
+            res = run_psu_mpc(params, query, db_items, seed=args.seed + 11, peqt="ddh")
+            torch.cuda.synchronize()
+    finally:
+        logger.removeHandler(records)
+        logger.setLevel(level)
+    wall = time.perf_counter() - t0
+    launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches,
+                "ps_inner": polyeval.launches}
+    transferred, union = as_set(res.transferred), as_set(res.union)
+    exact = (transferred == q_set - db_set and union == db_set | q_set
+             and not transferred & db_set and len(union) == len(db_set) + len(q_set - db_set))
+    control = transferred == as_set(other) - db_set
+    emit({"psu_mpc_path": name, "oprf": "kkrt", "peqt": "ddh", "mode": "union",
+          "db_items": len(db_items), "query_items": len(query), "common_items": COMMON_ITEMS,
+          "wall_s": wall, "timings": res.timings, "bytes_on_wire": res.timings["bytes_on_wire"],
+          "transferred": len(res.transferred), "union": len(res.union),
+          "expected_transferred": len(q_set - db_set), "oracle_exact": exact,
+          "control_other_query_passes": control, "ot_flavors": ot_flavors(records.messages),
+          "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if not exact:
+        raise AssertionError("run_psu_mpc set-algebra oracle failed")
+    if control:
+        raise AssertionError("the oracle accepted the union against another query's set")
+    if launches["ntt"] == 0 or launches["eval_dot"] == 0 or launches["ps_inner"]:
+        raise AssertionError(f"the run_psu_mpc path's launches are wrong: {launches}")
+
+    # the kernels at the shapes this run launched them with (DB build, both
+    # parties' BFV work and the query)
+    ntt_summary = check_ntt_shapes(calls["ntt"], gen)
+    emit({"psu_mpc_ntt": ntt_summary, "path": name})
+    (pw_shape, cache, base), = calls["eval_dot"]
+    powers = rand_residues(pw_shape, base.primes, gen)
+    evals = check_eval_dot(powers, cache, base, f"{name} run_psu_mpc query (DB cache)")
+    return {"launches": launches, "ntt": ntt_summary, "eval_dot": evals}
+
+
+def cli_path(args, gen) -> dict:
+    """Phase 8: ``receiver_cli --serve 2`` and ``sender_cli --peqt osn`` as two
+    processes on the card over TCP at 1M-2048-com, two KKRT queries on one
+    connection (the second through OP_REBIND).  Each process runs its CLI
+    module as ``python -m`` would, under ``cli_child``, which records every
+    kernel call (DB build, rebind, queries, the sender's encryption, keys and
+    decryption); afterwards each kernel is held against its plain version at
+    every recorded shape."""
+    name = "1M-2048-com"
+    rng = np.random.default_rng(args.seed)
+    db = [f"db-item-{i}" for i in range(DB_ITEMS)]
+    picks = rng.choice(DB_ITEMS, size=2 * COMMON_ITEMS, replace=False)
+    queries = [[f"query{k}-item-{i}" for i in range(QUERY_ITEMS - COMMON_ITEMS)]
+               + [db[j] for j in picks[k * COMMON_ITEMS:(k + 1) * COMMON_ITEMS]]
+               for k in range(2)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli-", dir=ROOT) as tmp:
+        tmp = Path(tmp)
+        for fname, rows in [("db.csv", db), ("query0.csv", queries[0]),
+                            ("query1.csv", queries[1])]:
+            (tmp / fname).write_text("".join(r + "\n" for r in rows))
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = str(s.getsockname()[1])
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        common = ["--port", port, "--log-level", "debug", "--device", CLI_DEVICE]
+
+        def child(module, record):
+            return [sys.executable, str(ROOT / "chip_smoke.py"), "--cli-child",
+                    str(tmp / record), f"apsu_tpu_torch.cli.{module}"]
+
+        recv = subprocess.Popen(
+            [*child("receiver_cli", "receiver_calls.json"), "--params",
+             str(ROOT / "parameters" / f"{name}.json"), "--db-file", str(tmp / "db.csv"),
+             "--bind", "127.0.0.1", "--out", str(tmp / "union.csv"), "--serve", "2",
+             "--seed", str(args.seed + 1), *common],
+            cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        recv_lines = []
+        reader = threading.Thread(target=lambda: recv_lines.extend(recv.stderr), daemon=True)
+        reader.start()
+        t0 = time.perf_counter()
+        try:
+            # the receiver logs this line once its socket is bound
+            while not any("listening on" in ln for ln in recv_lines):
+                if recv.poll() is not None or time.perf_counter() - t0 > CLI_TIMEOUT:
+                    raise RuntimeError("receiver_cli did not listen:\n"
+                                       + "".join(recv_lines)[-3000:])
+                time.sleep(0.2)
+            send = subprocess.run(
+                [*child("sender_cli", "sender_calls.json"), "--query-file",
+                 str(tmp / "query0.csv"), str(tmp / "query1.csv"), "--host", "127.0.0.1",
+                 "--peqt", "osn", "--seed", str(args.seed + 2), *common],
+                cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True, timeout=CLI_TIMEOUT)
+            rc = recv.wait(timeout=CLI_TIMEOUT)
+        finally:
+            if recv.poll() is None:
+                recv.kill()
+                recv.wait()
+        wall = time.perf_counter() - t0
+        reader.join(30)
+        recv_log = "".join(recv_lines)
+        if send.returncode != 0 or rc != 0:
+            raise RuntimeError(f"CLI failed: sender rc {send.returncode}, receiver rc {rc}\n"
+                               f"{send.stderr[-3000:]}\n{recv_log[-3000:]}")
+        union = set((tmp / "union.csv").read_text().split())
+        recorded = [json.loads((tmp / f).read_text())
+                    for f in ("receiver_calls.json", "sender_calls.json")]
+
+    def logged(pattern, text):
+        found = re.findall(pattern, text)
+        if not found:
+            raise AssertionError(f"no log line matches {pattern!r}")
+        return found[-1]
+
+    want = set(db) | set(queries[0]) | set(queries[1])
+    new = int(logged(r"\(2 queries, received (\d+) new\)", recv_log))
+    fresh = 2 * (QUERY_ITEMS - COMMON_ITEMS)
+    timings = ast.literal_eval(logged(r"timings: (\{.*\})", recv_log))
+    recv_launches = json.loads(logged(r"kernel launches: (\{.*\})", recv_log))
+    send_launches = json.loads(logged(r"kernel launches: (\{.*\})", send.stderr))
+    launches = {k: recv_launches[k] + send_launches[k] for k in recv_launches}
+    # repair 14(b): the consumed cache is freed before the rebind builds the next
+    mem = [float(x) for x in logged(
+        r"rebind: device memory allocated ([\d.]+) GB before, ([\d.]+) GB after releasing "
+        r"the consumed cache, ([\d.]+) GB after the rebind \(cache ([\d.]+) GB\)", recv_log)]
+    rebind_mem = dict(zip(("before", "after_release", "after_rebind", "cache"), mem))
+    res = {"cli_path": name, "processes": ["receiver_cli --serve 2", "sender_cli --peqt osn"],
+           "db_items": len(db), "query_items": [len(q) for q in queries],
+           "common_items_each": COMMON_ITEMS, "wall_s": wall,
+           "union": len(union), "expected_union": len(want), "union_exact": union == want,
+           "received_new": new, "expected_new": fresh,
+           "receiver_timings": timings, "receiver_rebind_mem_gb": rebind_mem,
+           "receiver_peak_mem_gb": float(logged(r"peak device memory: ([\d.]+) GB", recv_log)),
+           "sender_peak_mem_gb": float(logged(r"peak device memory: ([\d.]+) GB", send.stderr)),
+           "receiver_bytes": logged(r"bytes sent=\d+ received=\d+", recv_log),
+           "launches_receiver": recv_launches, "launches_sender": send_launches,
+           "ot_flavors_receiver": ot_flavors(recv_log.splitlines()),
+           "ot_flavors_sender": ot_flavors(send.stderr.splitlines())}
+    emit(res)
+    if union != want or new != fresh:
+        raise AssertionError("the CLI's union.csv is not the union of the CSVs")
+    if "rebind" not in timings:
+        raise AssertionError("the second query did not go through OP_REBIND")
+    if launches["ntt"] == 0 or launches["ps_inner"] == 0 or launches["eval_dot"]:
+        raise AssertionError(f"the CLI path's launches are wrong: {launches}")
+    counted = {k: sum(len(rec[k]) for rec in recorded) for k in launches}
+    if counted != launches:
+        raise AssertionError(f"recorded calls {counted} != logged launches {launches}")
+    if rebind_mem["before"] - rebind_mem["after_release"] < rebind_mem["cache"] - 1e-3:
+        raise AssertionError(f"the rebind did not free the consumed cache first: {rebind_mem}")
+
+    # the kernels at every shape the two processes launched them with
+    checks = replay_calls(recorded, gen, f"{name} CLI")
+    emit({"cli_ntt": checks["ntt"], "path": name})
+    return {"launches": launches, **checks}
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-child"]:   # phase 8's processes (cli_path)
+        sys.exit(cli_child(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit(main())
