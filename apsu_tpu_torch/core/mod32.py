@@ -84,6 +84,15 @@ def mul_hi(a, b):
     return (a * (b >> 16) + ((a * (b & MASK16)) >> 16)) >> 16
 
 
+def mul_wide(a, b):
+    """Full 32x32 -> 64-bit product as a (hi, lo) pair of int64 values in
+    [0, 2^32).  The operands are taken as u32 bits: an int32 holding a value
+    >= 2^31 is negative, so it is masked before ``mul_hi``/``mul_lo``, which
+    are only exact on [0, 2^32)."""
+    a, b = _w(a) & MASK32, _w(b) & MASK32
+    return mul_hi(a, b), mul_lo(a, b)
+
+
 # ---------------------------------------------------------------------------
 # Montgomery arithmetic
 # ---------------------------------------------------------------------------

@@ -134,6 +134,11 @@ def lib() -> ctypes.CDLL:
         L.apsu_ps_inner.restype = i32
         L.apsu_eval_dot.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
         L.apsu_eval_dot.restype = i32
+        u32 = ctypes.c_uint32
+        L.apsu_vpu_loop.argtypes = [vp, vp, i64, i32, u32, u32, i32, vp]
+        L.apsu_vpu_loop.restype = i32
+        L.apsu_add_one.argtypes = [vp, vp, i64, vp]
+        L.apsu_add_one.restype = i32
         _lib = L
     return _lib
 

@@ -25,7 +25,9 @@ import torch
 from apsu_tpu_torch.core.mod32 import I32, I64, shoup_mul_lazy
 from apsu_tpu_torch.ops import _build
 
-launches = 0   # kernel launches since the last reset (set to 0 to reset)
+# kernel launches since the last reset (set to 0 to reset); a launch captured
+# into a CUDA graph is counted at each replay, by ``tools.graph_ms``
+launches = 0
 
 MAX_LOGN = 13  # 32 KB row in shared memory
 
@@ -70,7 +72,8 @@ def ntt_cuda(x: torch.Tensor, tb, inverse: bool = False) -> torch.Tensor:
         _build.stream_ptr(x.device),
     )
     _build.check(err, "ntt")
-    launches += 1
+    if not torch.cuda.is_current_stream_capturing():   # a captured launch counts at replay
+        launches += 1
     return out
 
 

@@ -44,7 +44,9 @@ if TYPE_CHECKING:
 DEG_CHUNK = 8
 MAX_PRIME = 1 << 30   # both kernels' operand bound: products < 2^60 (fold every 8)
 
-launches = 0  # PS kernel launches since the last reset (set to 0 to reset)
+# kernel launches since the last reset (set to 0 to reset); a launch captured
+# into a CUDA graph is counted at each replay, by ``tools.graph_ms``
+launches = 0  # PS kernel launches
 dot_launches = 0  # dot kernel launches since the last reset
 
 
@@ -111,7 +113,8 @@ def ps_inner_cuda(low, cache5, base: RnsBase, caches_per_bundle: int) -> torch.T
         _build.stream_ptr(low.device),
     )
     _build.check(err, "ps_inner")
-    launches += 1
+    if not torch.cuda.is_current_stream_capturing():   # a captured launch counts at replay
+        launches += 1
     return out
 
 
@@ -195,7 +198,8 @@ def eval_dot_cuda(powers, cache, base: RnsBase) -> torch.Tensor:
         base.pni_u32.data_ptr(), B, C, D, Dp, L, N, _build.stream_ptr(powers.device),
     )
     _build.check(err, "eval_dot")
-    dot_launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        dot_launches += 1
     return out
 
 

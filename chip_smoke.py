@@ -14,16 +14,25 @@ Phases, each printing one JSON object per line:
    the 1M-4096-com eval shape on its 30-bit primes, and ph=311 on 256M-1's
    eval primes; the dot product: the 1M-2048-cmp shape, 30-bit primes, and
    520 planes);
-3. the PS path at full width: a dense synthetic 16M-4096 ReceiverDB
+3. the ceilings: the ceiling probe (``vpu_loop``, K9) and the per-call floor
+   (``add_one``, K10) against their plain versions, bit for bit; then the
+   port's two measuring tools (``apsu_tpu_torch.tools.vpu_roofline``: the
+   streaming rate, ``torch.add``'s, and each product's rate with its SASS
+   count; ``apsu_tpu_torch.tools.ntt4p_gl_ab``: K1 against K10's graph and
+   eager floors over the reference's grid), each with the launch counts set
+   to 0 before it and read after, and the ``ceilings`` line; a measured rate
+   above 105% of its published figure raises.  K1-K3's ``ceiling_ms`` in
+   the last line comes from these rates;
+4. the PS path at full width: a dense synthetic 16M-4096 ReceiverDB
    (B=4, C=6, cache [4, 6, 1312, 4, 8192] int32 on the card), one encrypted
    query with a relinearization key, ``Receiver.run_query`` once cold, three
    times warm and once with the in-call split, then the planted-match oracle
    on every response: each planted match decrypts to that query's mask and
    no non-match does (and, as a control, a response checked against another
    query's mask must fail);
-4. the kernels again against their plain versions at every shape the warm
+5. the kernels again against their plain versions at every shape the warm
    PS query launched them with, and their per-query device time and bound;
-5. the in-process PSU at full width on 1M-2048-cmp: 2^20 receiver items
+6. the in-process PSU at full width on 1M-2048-cmp: 2^20 receiver items
    through ``ReceiverDB.set_data`` (cache [5, 15, 80, 2, 4096] on the card),
    a 2048-item ``Sender`` query of which 1024 items are in the DB, and
    ``run_psu``, checked by set algebra (transferred == query - db, union ==
@@ -32,17 +41,17 @@ Phases, each printing one JSON object per line:
    against its own mask (exact) and, as a control, one against another
    query's mask (must fail); then the NTT and dot-product kernels against
    their plain versions at the shapes the warm query launched them with;
-6. the same on the PS set 1M-2048-com (29, 29 and 28-bit eval primes, which
+7. the same on the PS set 1M-2048-com (29, 29 and 28-bit eval primes, which
    the PS inner sums take since they fold their u64 sums), with the NTT and
    PS inner-sum kernels checked at the warm query's shapes;
-7. the real protocol in one process, ``run_psu_mpc`` at 1M-2048-cmp, full
+8. the real protocol in one process, ``run_psu_mpc`` at 1M-2048-cmp, full
    width: 2^20 DB items, 2048 query items of which 1024 are in the DB, the
    KKRT OPRF during the DB build, the DDH PEQT and the OT of the difference
    set, both parties on the card; the set algebra (and, as a control, the
    union against another query's set, which must fail), the phase times,
    bytes on the wire, the OT flavours used, each kernel's launches, and the
    kernels against their plain versions at the shapes this run launched;
-8. the two-process CLI on the card at 1M-2048-com: ``receiver_cli --serve 2``
+9. the two-process CLI on the card at 1M-2048-com: ``receiver_cli --serve 2``
    on 2^20 CSV items and ``sender_cli --peqt osn`` with two 2048-item query
    files on one TCP connection to a free localhost port, so the second query
    goes through OP_REBIND; each union.csv against the set algebra of the
@@ -52,10 +61,10 @@ Phases, each printing one JSON object per line:
    plain versions at every call either process made (each process runs its
    CLI module under ``chip_smoke.py --cli-child RECORD MODULE ARGS``, which
    records each call's shapes, strides and primes);
-9. with ``--compare-ntt``, each given NTT source (an earlier ``ntt.cu``, or
+10. with ``--compare-ntt``, each given NTT source (an earlier ``ntt.cu``, or
    a variant of it) built alone, checked and timed in turns with
    ``csrc/ntt.cu`` at the two largest NTT shapes (``compare_ntt``);
-10. the ``kernels`` summary line, then ``{"ok": true, "device": ...}``.
+11. the ``kernels`` summary line, then ``{"ok": true, "device": ...}``.
 
 Any mismatch, build failure or launch failure raises, and the run exits
 non-zero without the ``ok`` line.  Exits non-zero at once when
@@ -107,46 +116,6 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Mean device milliseconds of ``fn()`` over ``reps`` launches (warmed)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps: int = 20) -> float:
-    """Mean device milliseconds of ``fn()`` replayed from a CUDA graph of
-    ``reps`` calls: the launches run back to back with no host gaps, so a
-    kernel shorter than the host's launch overhead is timed too."""
-    fn()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(end) / reps
-
-
 def rand_residues(shape, primes, gen):
     """Canonical int32 residues [..., L, N] of the given limb primes."""
     p = torch.tensor(primes, dtype=torch.int64, device="cuda").reshape(-1, 1)
@@ -158,46 +127,75 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def ntt_bound_ms(shape, L, n, inverse):
-    """Least time for one transform: each residue read and written once plus
-    the twiddle tables, or 3 (inverse: 3 + 3/logN) 32-bit multiplies per
-    butterfly at the INT32 rate; the larger of the two."""
+def bound_ms(nbytes, mults):
+    """Least time at the published peaks: the bytes at the HBM rate or the
+    32-bit multiplies at the INT32 rate, the larger, and which it is."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, mults / INT32_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def ceiling_ms(work, ceilings, product):
+    """Least time at the card's measured ceilings (phase 3): the bytes of
+    ``work`` at the measured stream rate or its products at the measured rate
+    of ``product`` (a ``vpu_loop`` arm), the larger, and which it is."""
+    nbytes, products, _ = work
+    t_b = nbytes / ceilings["stream_bytes_per_s"] * 1e3
+    t_o = products / ceilings["products_per_s"][product] * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def ntt_work(shape, L, n, inverse):
+    """Bytes, Shoup products and 32-bit multiplies of one transform: each
+    residue read and written once plus the twiddle tables; one product a
+    butterfly (the inverse adds its N^-1 scaling), 3 multiplies each."""
     rows = 1
     for d in shape[:-1]:
         rows *= d
     logn = n.bit_length() - 1
     nbytes = 2 * rows * n * 4 + 2 * L * n * 4
-    mults = 3 * rows * (n // 2) * logn + (3 * rows * n if inverse else 0)
-    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, mults / INT32_OPS_PER_S * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+    products = rows * (n // 2) * logn + (rows * n if inverse else 0)
+    return nbytes, products, 3 * products
 
 
-def ps_bound_ms(low_shape, cache_shape):
-    """Least time for the PS inner sums: cache planes 1..ph-1 of every
-    segment, the low powers and the output moved once, or 4 32-bit
-    multiplies per 64-bit multiply-add (2 components) at the INT32 rate."""
+def ntt_bound_ms(shape, L, n, inverse):
+    return bound_ms(*ntt_work(shape, L, n, inverse)[::2])
+
+
+def ps_work(low_shape, cache_shape):
+    """Bytes, 32x32->64 products and 32-bit multiplies of the PS inner sums:
+    cache planes 1..ph-1 of every segment, the low powers and the output moved
+    once; one product per plane, lane and component (2 components), 2
+    multiplies each."""
     B, ell, _, L, N = low_shape
     R, nseg, ph = cache_shape[:3]
     nbytes = (R * nseg * (ph - 1) * L * N + B * ell * 2 * L * N + R * nseg * 2 * L * N) * 4
-    mults = 2 * 2 * R * nseg * (ph - 1) * L * N
-    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, mults / INT32_OPS_PER_S * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+    products = 2 * R * nseg * (ph - 1) * L * N
+    return nbytes, products, 2 * products
 
 
-def dot_bound_ms(powers_shape, cache_shape):
-    """Least time for the dot product: cache planes 1..D of every cache, the
-    powers and the output moved once, or 4 32-bit multiplies per 64-bit
-    multiply-add (2 components) at the INT32 rate."""
+def ps_bound_ms(low_shape, cache_shape):
+    return bound_ms(*ps_work(low_shape, cache_shape)[::2])
+
+
+def dot_work(powers_shape, cache_shape):
+    """Bytes, 32x32->64 products and 32-bit multiplies of the dot product:
+    cache planes 1..D of every cache, the powers and the output moved once;
+    one product per plane, lane and component (2 components), 2 multiplies
+    each."""
     B, D, _, L, N = powers_shape
     C = cache_shape[1]
     nbytes = (B * C * D * L * N + B * D * 2 * L * N + B * C * 2 * L * N) * 4
-    mults = 2 * 2 * B * C * D * L * N
-    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, mults / INT32_OPS_PER_S * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+    products = 2 * B * C * D * L * N
+    return nbytes, products, 2 * products
+
+
+def dot_bound_ms(powers_shape, cache_shape):
+    return bound_ms(*dot_work(powers_shape, cache_shape)[::2])
 
 
 def check_ntt(tb, shape, gen, label):
     from apsu_tpu_torch.ops import ntt as ntt_op
+    from apsu_tpu_torch.tools import cuda_ms, graph_ms
 
     x = rand_residues(shape, tb.primes, gen)
     out = {}
@@ -221,6 +219,7 @@ def check_ntt(tb, shape, gen, label):
 
 def check_ps_inner(low, cache5, q, label):
     from apsu_tpu_torch.ops import polyeval
+    from apsu_tpu_torch.tools import cuda_ms, graph_ms
 
     C = cache5.shape[0] // low.shape[0]
     k = polyeval.ps_inner_cuda(low, cache5, q, C)
@@ -243,6 +242,7 @@ def check_ps_inner(low, cache5, q, label):
 
 def check_eval_dot(powers, cache, base, label):
     from apsu_tpu_torch.ops import polyeval
+    from apsu_tpu_torch.tools import cuda_ms, graph_ms
 
     k = polyeval.eval_dot_cuda(powers, cache, base)
     pl = polyeval.eval_dot_plain(powers, cache, base)
@@ -268,12 +268,13 @@ def check_ntt_shapes(shapes, gen):
     time (each shape replayed from a CUDA graph) and bound, summed over the
     launches, and the largest shape's kernel, plain and bound times."""
     from apsu_tpu_torch.ops import ntt as ntt_op
+    from apsu_tpu_torch.tools import cuda_ms, graph_ms
 
     distinct = {}
     for shape, inverse, tb in shapes:
         key = (shape, inverse, id(tb))
         distinct.setdefault(key, [shape, inverse, tb, 0])[3] += 1
-    query_ms, query_bound_ms, big, err = 0.0, 0.0, None, 0
+    query_ms, query_bound_ms, big, err, works = 0.0, 0.0, None, 0, []
     for shape, inverse, tb, count in distinct.values():
         x = rand_residues(shape, tb.primes, gen)
         k = ntt_op.ntt_cuda(x, tb, inverse)
@@ -284,6 +285,7 @@ def check_ntt_shapes(shapes, gen):
         ms = graph_ms(lambda: ntt_op.ntt_cuda(x, tb, inverse))
         query_ms += ms * count
         query_bound_ms += ntt_bound_ms(shape, tb.L, tb.n, inverse)[0] * count
+        works.append([*ntt_work(shape, tb.L, tb.n, inverse), count])
         if big is None or x.numel() > big[0].numel():
             big = (x, tb, inverse, ms)
         del x, k, pl
@@ -295,7 +297,8 @@ def check_ntt_shapes(shapes, gen):
                "max_abs_err": err,
                "largest_shape": list(x.shape), "largest_inverse": inverse,
                "largest_ms": ms, "largest_plain_ms": plain_ms, "largest_bound_ms": b_ms,
-               "largest_bound_by": b_by, "n": sorted({s[-1] for s, _, _ in shapes})}
+               "largest_bound_by": b_by, "n": sorted({s[-1] for s, _, _ in shapes}),
+               "work_by_shape": works}
     return summary
 
 
@@ -512,7 +515,11 @@ def main() -> int:
     ps_checks = check_ps_wide_cases(gen)
     torch.cuda.empty_cache()
 
-    # -- phase 3: the PS path at full width ----------------------------------
+    # -- phase 3: the ceilings (K9, K10 and the two measuring tools) ---------
+    ceil = ceilings_phase()
+    torch.cuda.empty_cache()
+
+    # -- phase 4: the PS path at full width ----------------------------------
     rng = np.random.default_rng(args.seed)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -579,7 +586,7 @@ def main() -> int:
     if launches["ntt"] == 0 or launches["ps_inner"] == 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
 
-    # -- phase 4: kernels at every shape the warm query used -----------------
+    # -- phase 5: kernels at every shape the warm query used -----------------
     ntt_ps = check_ntt_shapes(calls["ntt"], gen)
     emit({"ntt_warm_query": ntt_ps})
 
@@ -595,19 +602,19 @@ def main() -> int:
     del recv, req, db, cache5, low, runs, resp, calls
     torch.cuda.empty_cache()
 
-    # -- phase 5: the in-process PSU at 1M-2048-cmp ----------------------------
+    # -- phase 6: the in-process PSU at 1M-2048-cmp ----------------------------
     psu = psu_path(args, gen, "1M-2048-cmp")
     torch.cuda.empty_cache()
 
-    # -- phase 6: the in-process PSU at 1M-2048-com (PS, 29-bit eval primes) --
+    # -- phase 7: the in-process PSU at 1M-2048-com (PS, 29-bit eval primes) --
     psu_ps = psu_path(args, gen, "1M-2048-com")
     torch.cuda.empty_cache()
 
-    # -- phase 7: run_psu_mpc at 1M-2048-cmp (KKRT, DDH PEQT, OT) -------------
+    # -- phase 8: run_psu_mpc at 1M-2048-cmp (KKRT, DDH PEQT, OT) -------------
     mpc = mpc_path(args, gen)
     torch.cuda.empty_cache()
 
-    # -- phase 8: the two-process CLI at 1M-2048-com (OSN PEQT, OP_REBIND) ----
+    # -- phase 9: the two-process CLI at 1M-2048-com (OSN PEQT, OP_REBIND) ----
     cli = cli_path(args, gen)
     if args.compare_ntt:
         torch.cuda.empty_cache()
@@ -617,6 +624,18 @@ def main() -> int:
                 "largest_bound_ms", "largest_bound_by", "device_ms_per_query",
                 "bound_ms_per_query")
     ps_keys = ("case", "low", "cache5", "primes_bits", "ms", "plain_ms", "bound_ms")
+    big = ntt_ps["largest_shape"]
+
+    def ceiling_keys(work, product):
+        t, by = ceiling_ms(work, ceil["ceilings"], product)
+        return {"ceiling_ms": t, "ceiling_by": by, "ceiling_product": product}
+
+    def ntt_summary(summary, keys=ntt_keys):
+        """An NTT summary's keys and its per-query ceiling (Shoup products)."""
+        return {**{k: summary[k] for k in keys},
+                "ceiling_ms_per_query": sum(ceiling_ms(w[:3], ceil["ceilings"], "shoup_lazy")[0]
+                                            * w[3] for w in summary["work_by_shape"])}
+
     kernels = [
         {"name": "ntt", "route": "cuda", "source": "apsu_tpu_torch/csrc/ntt.cu",
          "replaces": "apsu_tpu/ops/ntt4_pallas.py:504 (N=8192), "
@@ -634,14 +653,16 @@ def main() -> int:
          "tolerance": TOLERANCE,
          "ms": ntt_ps["largest_ms"], "plain_ms": ntt_ps["largest_plain_ms"],
          "bound_ms": ntt_ps["largest_bound_ms"], "bound_by": ntt_ps["largest_bound_by"],
+         **ceiling_keys(ntt_work(big, big[-2], big[-1], ntt_ps["largest_inverse"]),
+                        "shoup_lazy"),
          "library_ms": None,
          "shape": ntt_ps["largest_shape"], "inverse": ntt_ps["largest_inverse"],
-         "device_ms_per_query": ntt_ps["device_ms_per_query"],
-         "bound_ms_per_query": ntt_ps["bound_ms_per_query"],
-         "n4096_cmp": {k: psu["ntt"][k] for k in ntt_keys},
-         "n4096_com": {k: psu_ps["ntt"][k] for k in ntt_keys},
-         "psu_mpc_1M-2048-cmp": {k: mpc["ntt"][k] for k in ntt_keys},
-         "cli_1M-2048-com": {k: cli["ntt"][k] for k in ntt_keys + ("distinct_shapes",)}},
+         "launches_by_tool": {"ntt4p_gl_ab": ceil["ntt_launches"]},
+         **ntt_summary(ntt_ps, ("device_ms_per_query", "bound_ms_per_query")),
+         "n4096_cmp": ntt_summary(psu["ntt"]),
+         "n4096_com": ntt_summary(psu_ps["ntt"]),
+         "psu_mpc_1M-2048-cmp": ntt_summary(mpc["ntt"]),
+         "cli_1M-2048-com": ntt_summary(cli["ntt"], ntt_keys + ("distinct_shapes",))},
         {"name": "ps_inner", "route": "cuda", "source": "apsu_tpu_torch/csrc/ps_inner.cu",
          "replaces": "apsu_tpu/ops/polyeval.py:434",
          "launches": launches["ps_inner"] + psu_ps["launches"]["ps_inner"]
@@ -653,9 +674,11 @@ def main() -> int:
                             for d in [ps, psu_ps["ps_inner"]] + ps_checks + cli["ps_inner"]),
          "tolerance": TOLERANCE,
          "ms": ps["ms"], "plain_ms": ps["plain_ms"],
-         "bound_ms": ps["bound_ms"], "bound_by": ps["bound_by"], "library_ms": None,
+         "bound_ms": ps["bound_ms"], "bound_by": ps["bound_by"],
+         **ceiling_keys(ps_work(ps["low"], ps["cache5"]), "mul_wide"), "library_ms": None,
          "shape": {"low": ps["low"], "cache5": ps["cache5"]},
-         "other_cases": [{k: d[k] for k in ps_keys}
+         "other_cases": [{**{k: d[k] for k in ps_keys},
+                          **ceiling_keys(ps_work(d["low"], d["cache5"]), "mul_wide")}
                          for d in [psu_ps["ps_inner"]] + ps_checks + cli["ps_inner"]]},
         {"name": "eval_dot", "route": "cuda", "source": "apsu_tpu_torch/csrc/eval_dot.cu",
          "replaces": "apsu_tpu/ops/polyeval.py:484",
@@ -667,11 +690,15 @@ def main() -> int:
          "tolerance": TOLERANCE,
          "ms": psu["eval_dot"]["ms"], "plain_ms": psu["eval_dot"]["plain_ms"],
          "bound_ms": psu["eval_dot"]["bound_ms"], "bound_by": psu["eval_dot"]["bound_by"],
+         **ceiling_keys(dot_work(psu["eval_dot"]["powers"], psu["eval_dot"]["cache"]),
+                        "mul_wide"),
          "library_ms": None,
          "shape": {"powers": psu["eval_dot"]["powers"], "cache": psu["eval_dot"]["cache"]},
-         "other_cases": [{k: d[k] for k in ("case", "powers", "cache", "primes_bits", "ms",
-                                            "plain_ms", "bound_ms")}
+         "other_cases": [{**{k: d[k] for k in ("case", "powers", "cache", "primes_bits", "ms",
+                                               "plain_ms", "bound_ms")},
+                          **ceiling_keys(dot_work(d["powers"], d["cache"]), "mul_wide")}
                          for d in dot_checks + [mpc["eval_dot"]]]},
+        *ceil["kernels"],
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -734,6 +761,168 @@ def check_ps_wide_cases(gen):
     return out
 
 
+def ceilings_phase() -> dict:
+    """Phase 3.  K9 (``vpu_loop``) against its plain version on the reference
+    tool's (8, 512, 128) block, each arm at outer = 2 and at the tool's 256;
+    K10 (``add_one``) at [64, 7, 8192] on random u32 values and on values
+    just below 2^32 (which wrap), and at the stream's 1 GiB, where its plain
+    version is timed.  Then both measuring tools, each with the launch counts
+    set to 0 just before it and read just after (a rate above 105% of its
+    published figure raises in the tool), and the ``ceilings`` line.
+    Returns the two kernels' entries of the ``kernels`` line (K9 at the
+    tool's block and 256 rounds, summed over the arms; K10 at the stream's
+    1 GiB, one launch) and the measured ceilings: the faster of K10's and
+    ``torch.add``'s streams, and each product's rate from one launch of 256
+    rounds."""
+    from apsu_tpu_torch.core.mod32 import from_u32
+    from apsu_tpu_torch.ops import ntt as ntt_op
+    from apsu_tpu_torch.ops import roofline
+    from apsu_tpu_torch.tools import graph_ms, ntt4p_gl_ab, vpu_roofline, window_ms
+
+    sass = vpu_roofline.sass_per_step()
+    shape, outer = (8, 512, 128), 256   # the reference tool's block and rounds
+    x = from_u32(np.random.default_rng(0).integers(1, 1 << 28, shape, np.uint64)
+                 .astype(np.uint32), "cuda")
+    arms = {}
+    for op in roofline.OPS:
+        res = {"max_abs_err": 0}
+        for rounds in (2, outer):   # plain_ms is the last: the tool's rounds
+            k = roofline.vpu_loop_cuda(x, op, rounds)
+            pl, plain_ms = window_ms(lambda: roofline.vpu_loop_plain(x, op, rounds))
+            err = max_abs_err(k, pl)
+            if err > TOLERANCE or not torch.equal(k, pl):
+                raise AssertionError(f"vpu_loop kernel != plain ({op}, outer={rounds}): {err}")
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+        # the least instructions a step needs on its busier pipe, at one
+        # pipe's INT32 rate (the compiled loop's SASS count is beside it)
+        least = vpu_roofline.MIN_PER_STEP[op]
+        b_ms, b_by = bound_ms(2 * x.numel() * 4, x.numel() * roofline.REPS * outer
+                              * max(least.values()))
+        arms[op] = {**res, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "outer_2_ms": graph_ms(lambda: roofline.vpu_loop_cuda(x, op, 2)),
+                    "min_per_step": least, "sass_per_step": sass[op]}
+        del k, pl
+    emit({"check": "vpu_loop", "shape": list(shape), "outer": [2, 256], "tolerance": TOLERANCE,
+          "arms": arms})
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    add_cases = {}
+    for label, lo in [("random u32", 0), ("just below 2^32", (1 << 32) - 16)]:
+        # int64 u32 values cast to their int32 bits
+        y = torch.randint(lo, 1 << 32, (64, 7, 8192), dtype=torch.int64, device="cuda",
+                          generator=gen).to(torch.int32)
+        k = roofline.add_one_cuda(y)
+        pl = roofline.add_one_plain(y)
+        err = max_abs_err(k, pl)
+        if err > TOLERANCE or not torch.equal(k, pl):
+            raise AssertionError(f"add_one kernel != plain ({label}): {err}")
+        add_cases[label] = {"max_abs_err": err, "wrapped": int((k == 0).sum())}
+    if add_cases["just below 2^32"]["wrapped"] == 0:
+        raise AssertionError("no value wrapped in add_one's wrap case")
+    # replayed at this shape its 29 MB in and out stay in the 50 MB L2
+    emit({"check": "add_one", "shape": list(y.shape), "tolerance": TOLERANCE, "cases": add_cases,
+          "l2_resident_ms": graph_ms(lambda: roofline.add_one_cuda(y)),
+          "l2_resident_torch_add_ms": graph_ms(lambda: torch.add(y, 1))})
+    del x, y, k, pl
+    # the stream's 1 GiB launch, against the plain version that is timed
+    big = torch.randint(0, 1 << 30, (1 << 28,), dtype=torch.int32, device="cuda", generator=gen)
+    roofline.add_one_plain(big)
+    pl, add_plain_ms = window_ms(lambda: roofline.add_one_plain(big))
+    k = roofline.add_one_cuda(big)
+    err = max_abs_err(k, pl)
+    if err > TOLERANCE or not torch.equal(k, pl):
+        raise AssertionError(f"add_one kernel != plain (1 GiB): {err}")
+    add_cases["1 GiB stream"] = {"max_abs_err": err}
+    emit({"check": "add_one", "shape": list(big.shape), "tolerance": TOLERANCE,
+          "cases": {"1 GiB stream": add_cases["1 GiB stream"]}, "plain_ms": add_plain_ms})
+    del big, k, pl
+    torch.cuda.empty_cache()
+
+    # the tools' paths: counts set to 0 just before each, read just after
+    # (with the card's SM clock and power draw sampled every 100 ms meanwhile)
+    runs, launches, clocks = {}, {}, {}
+    for name, measure in [("vpu_roofline", lambda: vpu_roofline.measure("cuda", shape, outer)),
+                          ("ntt4p_gl_ab", lambda: ntt4p_gl_ab.measure("cuda"))]:
+        smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                                "--format=csv,noheader,nounits", "-lms", "100"],
+                               stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        try:
+            roofline.loop_launches = roofline.add_launches = ntt_op.launches = 0
+            t0 = time.perf_counter()
+            runs[name] = measure()
+            launches[name] = {"vpu_loop": roofline.loop_launches,
+                              "add_one": roofline.add_launches, "ntt": ntt_op.launches,
+                              "wall_s": time.perf_counter() - t0}
+        finally:
+            smi.terminate()
+            samples, _ = smi.communicate(timeout=30)
+        pairs = [[float(v) for v in ln.split(",")] for ln in samples.splitlines()
+                 if re.fullmatch(r"\s*[\d.]+\s*,\s*[\d.]+\s*", ln)]
+        clocks[name] = {"samples": len(pairs),
+                        "sm_mhz": sorted({int(c) for c, _ in pairs}),
+                        "max_power_w": max((w for _, w in pairs), default=None)}
+        torch.cuda.empty_cache()
+    roof, gl = runs["vpu_roofline"], runs["ntt4p_gl_ab"]
+    for arm in roof["arms"]:
+        emit({"vpu_roofline": arm["arm"], **arm})
+    emit({"vpu_roofline": "stream", **roof["stream"]})
+    for row in gl["rows"]:
+        emit({"ntt4p_gl_ab": row})
+    emit({"tool_launches": launches, "tool_clocks": clocks})
+    if (launches["vpu_roofline"]["vpu_loop"] == 0 or launches["vpu_roofline"]["add_one"] == 0
+            or launches["ntt4p_gl_ab"]["add_one"] == 0 or launches["ntt4p_gl_ab"]["ntt"] == 0):
+        raise AssertionError(f"a kernel of the tools' paths never launched: {launches}")
+    if not all(row["bit_identical"] for row in gl["rows"]):
+        raise AssertionError("ntt4p_gl_ab: K1 != ntt_plain on a row")
+    if not all(row["add_one_identical"] for row in gl["rows"]):
+        raise AssertionError("ntt4p_gl_ab: K10 != add_one_plain on a row")
+
+    s = roof["stream"]
+    ceilings = {
+        "device": roof["device"], "clocks_during_vpu_roofline": clocks["vpu_roofline"],
+        "stream_bytes_per_s": max(s["bytes_per_s"], s["torch_add_bytes_per_s"]),
+        "add_one_bytes_per_s": s["bytes_per_s"], "torch_add_bytes_per_s": s["torch_add_bytes_per_s"],
+        "products_per_s": {a["arm"]: a["steps_per_s"] for a in roof["arms"]},
+        "graph_products_per_s": {a["arm"]: a["graph_steps_per_s"] for a in roof["arms"]},
+        "sass_ops_per_s": {a["arm"]: a["ops_per_s"] for a in roof["arms"]},
+        "sass_per_step": sass,
+        "min_per_step": vpu_roofline.MIN_PER_STEP,
+        "arm_share_of_bound": {a["arm"]: a["share_of_bound"] for a in roof["arms"]},
+        "share_of_published": {
+            "add_one_stream": s["bytes_per_s"] / HBM_BYTES_PER_S,
+            "torch_add_stream": s["torch_add_bytes_per_s"] / HBM_BYTES_PER_S,
+            **{a["arm"]: a["busiest_pipe_ops_per_s"] / INT32_OPS_PER_S for a in roof["arms"]}},
+        "per_call_floor_ms": [{k: row[k] for k in ("L", "B", "add_one_graph_ms", "add_one_eager_ms",
+                                                    "torch_add_eager_ms", "l2_resident")}
+                              for row in gl["rows"]],
+    }
+    emit({"ceilings": ceilings})
+    tool_ms = {a["arm"]: a["ms"] for a in roof["arms"]}
+    k9 = {"name": "vpu_loop", "route": "cuda", "source": "apsu_tpu_torch/csrc/roofline.cu",
+          "replaces": "tools/vpu_roofline.py:103",
+          "launches": launches["vpu_roofline"]["vpu_loop"],
+          "launches_by_path": {"vpu_roofline": launches["vpu_roofline"]["vpu_loop"]},
+          "max_abs_err": max(a["max_abs_err"] for a in arms.values()), "tolerance": TOLERANCE,
+          "ms": sum(tool_ms.values()),
+          **{key: sum(a[key] for a in arms.values()) for key in ("plain_ms", "bound_ms")},
+          "bound_by": "operations", "library_ms": None,
+          "shape": list(shape), "outer": outer, "sums_over": list(roofline.OPS),
+          "arms": {op: {"ms": tool_ms[op], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"]}
+                   for op, a in arms.items()}}
+    stream_bytes = 2 * s["buffer_bytes"]
+    k10 = {"name": "add_one", "route": "cuda", "source": "apsu_tpu_torch/csrc/roofline.cu",
+           "replaces": "tools/ntt4p_gl_ab.py:65",
+           "launches": launches["vpu_roofline"]["add_one"] + launches["ntt4p_gl_ab"]["add_one"],
+           "launches_by_path": {k: v["add_one"] for k, v in launches.items()},
+           "max_abs_err": max(c["max_abs_err"] for c in add_cases.values()),
+           "tolerance": TOLERANCE, "ms": s["ms"] / s["launches_a_window"],
+           "plain_ms": add_plain_ms, "bound_ms": stream_bytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "library_ms": s["torch_add_ms"] / s["launches_a_window"],
+           "shape": [s["elems"]]}
+    return {"kernels": [k9, k10], "ceilings": ceilings,
+            "ntt_launches": launches["ntt4p_gl_ab"]["ntt"]}
+
+
 def compare_ntt(sources, gen) -> None:
     """Each given NTT source (an earlier commit's ``ntt.cu`` or a variant
     with the same C entry point ``apsu_ntt``), built alone, against
@@ -747,6 +936,7 @@ def compare_ntt(sources, gen) -> None:
     from apsu_tpu_torch.db.receiver_db import ReceiverDB
     from apsu_tpu_torch.ops import _build
     from apsu_tpu_torch.ops import ntt as ntt_op
+    from apsu_tpu_torch.tools import graph_ms
 
     procs = []
     for i, src in enumerate(sources):
@@ -818,8 +1008,8 @@ def compare_ntt(sources, gen) -> None:
 
 
 def psu_path(args, gen, name: str) -> dict:
-    """run_psu at ``name`` at full width, then warm queries: phase 5 on the
-    non-PS 1M-2048-cmp (kernel K3), phase 6 on the PS 1M-2048-com (K2)."""
+    """run_psu at ``name`` at full width, then warm queries: phase 6 on the
+    non-PS 1M-2048-cmp (kernel K3), phase 7 on the PS 1M-2048-com (K2)."""
     from apsu_tpu_torch.api.parties import Receiver, Sender, _slots_to_item_blocks
     from apsu_tpu_torch.api.protocol import DebugEndgame, run_psu
     from apsu_tpu_torch.core.params import PSUParams
@@ -959,7 +1149,7 @@ def ot_flavors(messages) -> list:
 
 
 def mpc_path(args, gen) -> dict:
-    """Phase 7: ``run_psu_mpc`` at 1M-2048-cmp, full width, with the KKRT
+    """Phase 8: ``run_psu_mpc`` at 1M-2048-cmp, full width, with the KKRT
     OPRF, the DDH PEQT and union mode; both parties' kernel calls recorded
     and the kernels checked at those shapes afterwards."""
     from apsu_tpu_torch.api.protocol import run_psu_mpc
@@ -1025,7 +1215,7 @@ def mpc_path(args, gen) -> dict:
 
 
 def cli_path(args, gen) -> dict:
-    """Phase 8: ``receiver_cli --serve 2`` and ``sender_cli --peqt osn`` as two
+    """Phase 9: ``receiver_cli --serve 2`` and ``sender_cli --peqt osn`` as two
     processes on the card over TCP at 1M-2048-com, two KKRT queries on one
     connection (the second through OP_REBIND).  Each process runs its CLI
     module as ``python -m`` would, under ``cli_child``, which records every
@@ -1142,6 +1332,6 @@ def cli_path(args, gen) -> dict:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--cli-child"]:   # phase 8's processes (cli_path)
+    if sys.argv[1:2] == ["--cli-child"]:   # phase 9's processes (cli_path)
         sys.exit(cli_child(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit(main())

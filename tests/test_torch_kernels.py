@@ -15,7 +15,7 @@ from apsu_tpu_torch.core.ntt import NttContext
 from apsu_tpu_torch.core.params import PSUParams
 from apsu_tpu_torch.core.rns import RnsBase
 from apsu_tpu_torch.ops import ntt as ntt_op
-from apsu_tpu_torch.ops import polyeval
+from apsu_tpu_torch.ops import polyeval, roofline
 
 
 def _need_cuda():
@@ -131,6 +131,48 @@ def test_eval_dot_kernel_matches_plain(bits, B, C, D, Dp, fill):
     cache[:, :, 0] = 7
     cache[:, :, D + 1:] = 11
     assert torch.equal(polyeval.eval_dot_cuda(powers, cache, base), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", roofline.OPS)
+@pytest.mark.parametrize("n,outer", [(8 * 512 * 128, 2), (4 * 129 + 3, 3), (1, 1)])
+def test_vpu_loop_kernel_matches_plain(op, n, outer):
+    """Every arm at the tool's block, a count that leaves the last threads'
+    chains ragged, and one element; inputs span the full u32 range."""
+    _need_cuda()
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.integers(0, 1 << 32, n, np.uint64).astype(np.uint32).view(np.int32))
+    x = x.to("cuda")
+    assert torch.equal(roofline.vpu_loop_cuda(x, op, outer), roofline.vpu_loop_plain(x, op, outer))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64 * 7 * 8192, 4097, 3, 1])
+def test_add_one_kernel_matches_plain(n):
+    _need_cuda()
+    rng = np.random.default_rng(n)
+    x = rng.integers(0, 1 << 32, n, np.uint64).astype(np.uint32)
+    x[: min(n, 5)] = 0xFFFFFFFF   # wraps to 0
+    xt = torch.from_numpy(x.view(np.int32)).to("cuda")
+    assert torch.equal(roofline.add_one_cuda(xt), roofline.add_one_plain(xt))
+    out = torch.empty_like(xt)
+    assert roofline.add_one_cuda(xt, out) is out and torch.equal(out, roofline.add_one_plain(xt))
+    if n > 1:
+        with pytest.raises(ValueError, match="aligned"):
+            roofline.add_one_cuda(torch.empty(n + 1, dtype=torch.int32, device="cuda")[1:])
+
+
+@pytest.mark.cuda
+def test_graph_ms_counts_replayed_launches():
+    """A launch captured into a CUDA graph counts once at each replay, not at
+    the capture."""
+    _need_cuda()
+    from apsu_tpu_torch.tools import graph_ms
+
+    x = torch.zeros(4096, dtype=torch.int32, device="cuda")
+    roofline.add_launches = 0
+    graph_ms(lambda: roofline.add_one_cuda(x), reps=7)
+    assert roofline.add_launches == 2 + 2 * 7   # two eager calls, two replays of 7
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
