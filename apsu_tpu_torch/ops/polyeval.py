@@ -9,11 +9,15 @@ Kernel 2 replaces the TPU kernel
 
 per limb and lane, over both ciphertext components.  On the H100 it is bound
 by device-memory bytes — the coefficient cache (4 GB per query at 16M-4096)
-must stream through once.  The kernel reads it once, in place through its row
-stride (the evaluator's strided view is never copied), accumulates 64-bit
-sums per output lane and reduces once at the end.  It takes every prime
-< 2^30 and any ph (the TPU kernel needs < 2^28): it reduces the high word of
-each sum mod p every 8 products, so no sum can wrap.
+must stream through once.  A block owns a lane tile of one bundle and limb
+and a chunk of that bundle's rows: it holds the tile's low powers in shared
+memory (read once a block), streams the cache through a ring of shared-memory
+stages by bulk asynchronous copies, in place through its row stride (the
+evaluator's strided view is never copied), and reduces each 8-product u64
+sum with one Montgomery reduction and no division.  It takes every prime
+< 2^30 and any ph (the TPU kernel needs < 2^28).  The launcher in
+``csrc/ps_inner.cu`` picks the row chunk from the card's SM count and the
+kernel's occupancy.
 
 Kernel 3 replaces ``apsu_tpu/ops/polyeval.py:eval_dot_pallas`` (the non-PS
 evaluation):
@@ -102,8 +106,12 @@ def ps_inner_cuda(low, cache5, base: RnsBase, caches_per_bundle: int) -> torch.T
     inner = (ph * L * N, L * N, N, 1)
     if tuple(cache5.stride()[1:]) != inner and R * nseg > 0:
         raise ValueError(f"cache5 strides {cache5.stride()} not contiguous below the row axis")
-    if R * nseg * L * N >= 1 << 62 or max(R, nseg, ph, L, N) >= 1 << 31:
+    if R * nseg * L * N >= 1 << 62 or max(R * nseg, ph, L * N) >= 1 << 31:
         raise ValueError("ps_inner_cuda shape too large")
+    # the kernel's bulk copies move 16-byte aligned runs of a lane tile
+    if N % 4 or cache5.stride(0) % 4 or cache5.data_ptr() % 16 or low.data_ptr() % 16:
+        raise ValueError("ps_inner_cuda needs N % 4 == 0, 16-byte aligned low and cache5, "
+                         "and a cache5 row stride that is a multiple of 4")
     out = torch.empty((R, nseg, 2, L, N), dtype=I32, device=low.device)
     if out.numel() == 0:
         return out

@@ -2,6 +2,7 @@
 """Drive the apsu_tpu_torch port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--seed S] [--profile] [--compare-ntt SRC ...]
+                          [--compare-ps-inner SRC ...]
 
 Phases, each printing one JSON object per line:
 
@@ -63,7 +64,10 @@ Phases, each printing one JSON object per line:
    records each call's shapes, strides and primes);
 10. with ``--compare-ntt``, each given NTT source (an earlier ``ntt.cu``, or
    a variant of it) built alone, checked and timed in turns with
-   ``csrc/ntt.cu`` at the two largest NTT shapes (``compare_ntt``);
+   ``csrc/ntt.cu`` at the two largest NTT shapes (``compare_ntt``); with
+   ``--compare-ps-inner``, each given PS inner-sum source likewise, at K2's
+   four recorded shapes, with each build's registers, spills and SASS calls
+   (``compare_ps_inner``);
 11. the ``kernels`` summary line, then ``{"ok": true, "device": ...}``.
 
 Any mismatch, build failure or launch failure raises, and the run exits
@@ -217,6 +221,19 @@ def check_ntt(tb, shape, gen, label):
           "primes_bits": [p.bit_length() for p in tb.primes], **out})
 
 
+def ps_plan(cache5, C) -> dict:
+    """The launch shape K2 takes for ``cache5`` (``apsu_ps_inner_plan``)."""
+    import ctypes
+
+    from apsu_tpu_torch.ops import _build
+
+    shape = (ctypes.c_int * 6)()
+    R, nseg, ph, L, N = cache5.shape
+    _build.check(_build.lib().apsu_ps_inner_plan(R, C, nseg, ph, L, N, shape), "ps_inner plan")
+    return dict(zip(("lanes_a_block", "rows_a_block", "row_chunks", "blocks_an_sm", "smem_bytes",
+                     "low_chunked"), shape))
+
+
 def check_ps_inner(low, cache5, q, label):
     from apsu_tpu_torch.ops import polyeval
     from apsu_tpu_torch.tools import cuda_ms, graph_ms
@@ -234,7 +251,7 @@ def check_ps_inner(low, cache5, q, label):
         "max_abs_err": err, "tolerance": TOLERANCE,
         "ms": graph_ms(lambda: polyeval.ps_inner_cuda(low, cache5, q, C)),
         "plain_ms": cuda_ms(lambda: polyeval.ps_inner_plain(low, cache5, q, C), reps=1),
-        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_ms": b_ms, "bound_by": b_by, "plan": ps_plan(cache5, C),
     }
     emit(res)
     return res
@@ -437,6 +454,9 @@ def main() -> int:
                     help="also trace one warm query with torch.profiler")
     ap.add_argument("--compare-ntt", nargs="+", type=Path, default=[], metavar="SRC",
                     help="other ntt.cu sources to check and time in turns with csrc/ntt.cu")
+    ap.add_argument("--compare-ps-inner", nargs="+", type=Path, default=[], metavar="SRC",
+                    help="other ps_inner.cu sources to check and time in turns with "
+                         "csrc/ps_inner.cu")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -619,6 +639,9 @@ def main() -> int:
     if args.compare_ntt:
         torch.cuda.empty_cache()
         compare_ntt(args.compare_ntt, gen)
+    if args.compare_ps_inner:
+        torch.cuda.empty_cache()
+        compare_ps_inner(args.compare_ps_inner, gen)
 
     ntt_keys = ("largest_shape", "largest_inverse", "largest_ms", "largest_plain_ms",
                 "largest_bound_ms", "largest_bound_by", "device_ms_per_query",
@@ -734,30 +757,53 @@ def check_dot_cases(gen):
     return out
 
 
+# K2's recorded shapes: bundles (None: the set's), caches per bundle,
+# segments (None: the set's) and whether cache5 is the evaluator's strided
+# view of the full plane axis
+PS_CASES = {
+    "1M-2048-com": (None, 9, None, True),   # the warm query and the CLI
+    "16M-4096": (None, 6, None, True),      # the main path
+    "1M-4096-com": (None, 6, None, False),  # 30-bit eval primes, ph=9
+    "256M-1": (1, 2, 2, False),             # ph=311, cut to a few hundred MB
+}
+
+
+def ps_inner_case(name, gen):
+    """Random low powers and cache at one of ``PS_CASES`` on that set's
+    evaluation base: (label, low, cache5, base)."""
+    from apsu_tpu_torch.core.params import PSUParams
+    from apsu_tpu_torch.db.receiver_db import ReceiverDB
+    from apsu_tpu_torch.ops import polyeval
+
+    B, C, nseg, view = PS_CASES[name]
+    params = PSUParams.load_file(str(ROOT / "parameters" / f"{name}.json"))
+    db = ReceiverDB(params, device="cuda")
+    q = db.bfv.levels[db.ps_level()]
+    N, qp = params.poly_degree, params.query_params
+    ph = qp.ps_low_degree + 1
+    B = B or params.bundle_idx_count
+    planes = polyeval.plane_count(params.table_params.max_items_per_bin, qp.ps_low_degree)
+    nseg = nseg or planes // ph
+    low = rand_residues((B, ph - 1, 2, q.k, N), q.primes, gen)
+    if view:
+        cache = rand_residues((B * C, planes, q.k, N), q.primes, gen)
+        cache5 = cache[:, : nseg * ph].reshape(B * C, nseg, ph, q.k, N)
+    else:
+        cache5 = rand_residues((B * C, nseg, ph, q.k, N), q.primes, gen)
+    return f"{name} eval primes, ph={ph}", low, cache5, q
+
+
 def check_ps_wide_cases(gen):
     """The PS inner-sum kernel at wide primes and ph against its plain version:
     the 1M-4096-com evaluation shape (its three 30-bit eval primes, ph=9,
     B=5 bundles of 6 caches, 104 planes) and ph=311 at 256M-1's six eval
     primes (30 and 29 bits), with B=1, C=2 and two segments so that it fits a
     few hundred MB."""
-    from apsu_tpu_torch.core.params import PSUParams
-    from apsu_tpu_torch.db.receiver_db import ReceiverDB
-    from apsu_tpu_torch.ops import polyeval
-
     out = []
-    for name, B, C, nseg in [("1M-4096-com", None, 6, None), ("256M-1", 1, 2, 2)]:
-        params = PSUParams.load_file(str(ROOT / "parameters" / f"{name}.json"))
-        db = ReceiverDB(params, device="cuda")
-        q = db.bfv.levels[db.ps_level()]
-        N, qp = params.poly_degree, params.query_params
-        ph = qp.ps_low_degree + 1
-        B = B or params.bundle_idx_count
-        nseg = nseg or polyeval.plane_count(params.table_params.max_items_per_bin,
-                                            qp.ps_low_degree) // ph
-        low = rand_residues((B, ph - 1, 2, q.k, N), q.primes, gen)
-        cache5 = rand_residues((B * C, nseg, ph, q.k, N), q.primes, gen)
-        out.append(check_ps_inner(low, cache5, q, f"{name} eval primes, ph={ph}"))
-        del low, cache5, db
+    for name in ("1M-4096-com", "256M-1"):
+        label, low, cache5, q = ps_inner_case(name, gen)
+        out.append(check_ps_inner(low, cache5, q, label))
+        del low, cache5
     return out
 
 
@@ -923,6 +969,43 @@ def ceilings_phase() -> dict:
             "ntt_launches": launches["ntt4p_gl_ab"]["ntt"]}
 
 
+def build_alone(sources, tag: str):
+    """Each given CUDA source compiled alone (all ``nvcc`` at once) into its
+    own shared library; yields (source, library path, nvcc's log)."""
+    from apsu_tpu_torch.ops import _build
+
+    procs = []
+    for i, src in enumerate(sources):
+        lib = _build.BUILD_ROOT / f"compare_{tag}" / f"{i}" / "lib.so"
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        cmd = [_build._nvcc(), *_build.ARCH_FLAGS, *_build.CFLAGS, "-shared", str(src),
+               "-o", str(lib)]
+        procs.append((src, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True)))
+    for src, lib, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+        yield src, lib, log
+
+
+def ptxas_stats(log: str) -> dict:
+    """The most registers and the spilled bytes of the kernels in a
+    ``-Xptxas -v`` log."""
+    return {"max_registers": max(int(r) for r in re.findall(r"Used (\d+) registers", log)),
+            "spill_bytes": sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))}
+
+
+def sass_functions(lib, pattern: str) -> list:
+    """The SASS text of each kernel in ``lib`` whose mangled name matches."""
+    from apsu_tpu_torch.ops import _build
+
+    dump = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    return [f for f in re.split(r"\n\s*Function : ", dump)[1:]
+            if re.search(pattern, f.split("\n", 1)[0])]
+
+
 def compare_ntt(sources, gen) -> None:
     """Each given NTT source (an earlier commit's ``ntt.cu`` or a variant
     with the same C entry point ``apsu_ntt``), built alone, against
@@ -938,14 +1021,6 @@ def compare_ntt(sources, gen) -> None:
     from apsu_tpu_torch.ops import ntt as ntt_op
     from apsu_tpu_torch.tools import graph_ms
 
-    procs = []
-    for i, src in enumerate(sources):
-        lib = _build.BUILD_ROOT / "compare" / f"{i}" / "lib.so"
-        lib.parent.mkdir(parents=True, exist_ok=True)
-        cmd = [_build._nvcc(), *_build.ARCH_FLAGS, *_build.CFLAGS, "-shared", str(src),
-               "-o", str(lib)]
-        procs.append((src, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                 stderr=subprocess.STDOUT, text=True)))
     def launcher(so, name):
         def run(x, tb, inverse, out):
             tw, tw_sh = (tb.winv_pl_u32, tb.winv_sh_u32) if inverse else (tb.w_pl_u32, tb.w_sh_u32)
@@ -959,22 +1034,15 @@ def compare_ntt(sources, gen) -> None:
     def sass_fwd_8192(lib):
         """Static SASS instructions of the forward N=8192 kernel, if the
         source instantiates one per N (fully unrolled, so what a thread runs)."""
-        dump = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
-                              capture_output=True, text=True).stdout
-        for f in re.split(r"\n\s*Function : ", dump)[1:]:
-            if re.search(r"ntt_kernelILi13E(?:Li\d+E)?Lb0E", f.split("\n", 1)[0]):
-                return len(re.findall(r"^\s+/\*[0-9a-f]{4}\*/\s+[A-Z@]", f, re.M))
+        for f in sass_functions(lib, r"ntt_kernelILi13E(?:Li\d+E)?Lb0E"):
+            return len(re.findall(r"^\s+/\*[0-9a-f]{4}\*/\s+[A-Z@]", f, re.M))
         return None
 
     builds = {"csrc/ntt.cu": launcher(_build.lib(), "csrc/ntt.cu")}
     emit({"compare_ntt_build": "csrc/ntt.cu", "sass_fwd_8192": sass_fwd_8192(_build.build())})
-    for src, lib, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+    for src, lib, log in build_alone(sources, "ntt"):
         emit({"compare_ntt_build": str(src), "sass_fwd_8192": sass_fwd_8192(lib),
-              "max_registers": max(int(r) for r in re.findall(r"Used (\d+) registers", log)),
-              "spill_bytes": sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))})
+              **ptxas_stats(log)})
         so = ctypes.CDLL(str(lib))
         so.apsu_ntt.argtypes = _build.lib().apsu_ntt.argtypes
         so.apsu_ntt.restype = ctypes.c_int
@@ -1005,6 +1073,64 @@ def compare_ntt(sources, gen) -> None:
                   "bound_ms": ntt_bound_ms(shape, tb.L, tb.n, inverse)[0],
                   "ms": {name: sum(t) / len(t) for name, t in turns.items()}})
         del x, out
+
+
+def compare_ps_inner(sources, gen) -> None:
+    """Each given PS inner-sum source (an earlier commit's ``ps_inner.cu`` or
+    a variant with the same C entry point ``apsu_ps_inner``), built alone,
+    against ``ps_inner_plain`` at K2's four shapes (``PS_CASES``: the
+    1M-2048-com warm query's and the 16M-4096 main path's strided views,
+    1M-4096-com's 30-bit primes at ph=9, ph=311 on 256M-1's primes), then
+    timed in turns (A, B, ..., B, A) with the package's kernel.  Each build
+    also reports its registers, spills and the CALL instructions in its
+    kernels' SASS (a 64-bit division compiles to a call)."""
+    import ctypes
+
+    from apsu_tpu_torch.ops import _build, polyeval
+    from apsu_tpu_torch.tools import graph_ms
+
+    def launcher(so, name):
+        def run(low, cache5, q, C, out):
+            R, nseg, ph, L, N = cache5.shape
+            _build.check(so.apsu_ps_inner(
+                low.data_ptr(), cache5.data_ptr(), out.data_ptr(), q.p_u32.data_ptr(),
+                q.pni_u32.data_ptr(), cache5.stride(0), R, C, nseg, ph, L, N,
+                _build.stream_ptr(low.device)), f"ps_inner ({name})")
+        return run
+
+    own = "csrc/ps_inner.cu"
+    builds = {own: launcher(_build.lib(), own)}
+    for src, lib, log in build_alone([_build.CSRC / "ps_inner.cu", *sources], "ps_inner"):
+        calls = sum(len(re.findall(r"^\s+/\*[0-9a-f]{4}\*/\s+CALL", f, re.M))
+                    for f in sass_functions(lib, "ps_inner_kernel"))
+        name = own if src == _build.CSRC / "ps_inner.cu" else str(src)
+        emit({"compare_ps_inner_build": name, **ptxas_stats(log), "sass_calls": calls})
+        if name != own:
+            so = ctypes.CDLL(str(lib))
+            so.apsu_ps_inner.argtypes = _build.lib().apsu_ps_inner.argtypes
+            so.apsu_ps_inner.restype = ctypes.c_int
+            builds[name] = launcher(so, name)
+
+    for case in PS_CASES:
+        label, low, cache5, q = ps_inner_case(case, gen)
+        C = cache5.shape[0] // low.shape[0]
+        want = polyeval.ps_inner_plain(low, cache5, q, C)
+        out = torch.empty_like(want)
+        for name, run in builds.items():
+            out.zero_()
+            run(low, cache5, q, C, out)
+            if not torch.equal(out, want):
+                raise AssertionError(f"PS inner sums {name} != plain at {label}")
+        del want
+        turns = {name: [] for name in builds}
+        for name in list(builds) + list(builds)[::-1]:
+            turns[name].append(graph_ms(lambda: builds[name](low, cache5, q, C, out)))
+        emit({"compare_ps_inner": label, "low": list(low.shape), "cache5": list(cache5.shape),
+              "cache5_row_stride": cache5.stride(0), "plan": ps_plan(cache5, C),
+              "bound_ms": ps_bound_ms(tuple(low.shape), tuple(cache5.shape))[0],
+              "ms": {name: sum(t) / len(t) for name, t in turns.items()}, "turns_ms": turns})
+        del low, cache5, out
+        torch.cuda.empty_cache()
 
 
 def psu_path(args, gen, name: str) -> dict:

@@ -111,6 +111,71 @@ def test_ps_inner_kernel_matches_plain(ph, nseg, C, fill):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bits,N,ph,nseg,C,extra,fill", [
+    ([30, 29], 256, 6, 7, 3, 5, None),          # C*nseg = 21 rows
+    ([28, 27], 256, 4, 19, 7, 2, None),         # 133 rows: chunks of 3 rows, the last of 1
+    ([30], 64, 6, 5, 2, 3, None),               # N below one lane tile; row stride 33*64
+    ([29, 28], 4096, 45, 3, 2, 1, None),        # N = 4096
+    ([28, 28, 27], 8192, 6, 4, 3, 2, "p-1"),    # N = 8192, every product at its largest
+    ([30, 30], 256, 2, 9, 2, 1, "p-1"),         # ph = 2: one product a sum
+    ([30], 256, 1, 3, 2, 1, None),              # ph = 1: empty sums
+    ([30, 30], 4096, 311, 3, 3, 2, None),       # low planes in chunks, rows 3 a block
+    ([30, 29], 128, 311, 1, 2, 0, "p-1"),       # chunked at the largest products
+    ([30], 512, 66, 2, 2, 1, "p-1"),            # ph - 1 = 65: a last chunk of one plane
+])
+def test_ps_inner_kernel_tiling_edges(bits, N, ph, nseg, C, extra, fill):
+    """The kernel's lane tiles, row chunks, stage groups and low-plane chunks
+    at their edges, on strided views of a larger cache, bit for bit."""
+    _need_cuda()
+    primes = gen_ntt_primes(bits, 2 * N)
+    B, L = 2, len(primes)
+    base = RnsBase(primes, N, "cuda")
+    low = _residues((B, ph - 1, 2, L, N), primes, "cuda", seed=ph + N, fill=fill)
+    big = _residues((B * C, nseg * ph + extra, L, N), primes, "cuda", seed=nseg + C, fill=fill)
+    view = big[:, : nseg * ph].reshape(B * C, nseg, ph, L, N)
+    got = polyeval.ps_inner_cuda(low, view, base, C)
+    assert torch.equal(got, polyeval.ps_inner_plain(low, view, base, C))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C,nseg,ph,L,N", [
+    (45, 9, 21, 6, 3, 4096),        # 1M-2048-com's warm query
+    (24, 6, 29, 45, 4, 8192),       # the 16M-4096 main path
+    (2, 2, 2, 311, 6, 8192),        # ph=311: the low planes in chunks
+    (6, 3, 3, 311, 2, 4096),
+])
+def test_ps_inner_plan_covers_every_row(R, C, nseg, ph, L, N):
+    """The launch shape: its row chunks cover a bundle's C*nseg rows, a
+    chunked block keeps at most 8 rows, and the shared memory fits a block."""
+    import ctypes
+
+    from apsu_tpu_torch.ops import _build
+
+    _need_cuda()
+    shape = (ctypes.c_int * 6)()
+    assert _build.lib().apsu_ps_inner_plan(R, C, nseg, ph, L, N, shape) == 0
+    lanes, rows, chunks, occ, smem, chunked = shape
+    assert lanes == 128 and occ >= 1 and smem <= 232448
+    assert chunked == (ph - 1 > 64)
+    assert (chunks - 1) * rows < C * nseg <= chunks * rows
+    assert not chunked or rows <= 8
+
+
+@pytest.mark.cuda
+def test_ps_inner_cuda_refuses_unaligned_cache():
+    """The bulk copies need 16-byte aligned rows: a view one element off is
+    refused, not read wrong."""
+    _need_cuda()
+    primes = gen_ntt_primes([28], 512)
+    base = RnsBase(primes, 256, "cuda")
+    low = _residues((1, 3, 2, 1, 256), primes, "cuda", seed=1)
+    flat = _residues((1, 2 * 4 * 256 + 1), primes, "cuda", seed=2)[0]
+    cache5 = flat[1:].reshape(2, 1, 4, 1, 256)
+    with pytest.raises(ValueError, match="aligned"):
+        polyeval.ps_inner_cuda(low, cache5, base, 2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bits,B,C,D,Dp,fill", [
     ([28, 27], 2, 15, 72, 80, None),      # the 1M-2048-cmp evaluation shape, cut in N
     ([28, 27], 1, 3, 72, 80, "p-1"),      # C not a multiple of the cache block

@@ -5,11 +5,13 @@ The reference sends such sets to its XLA loop (``_use_pallas`` is false
 above 2^28); the port's PS inner sums (K2's plain version here, the kernel
 on the card) take every prime < 2^30 and any ph.  1M-2048-com (29, 29 and
 28-bit eval primes) is the APSU paper's 2^20 × 2^11 communication-optimised
-setting: ``run_psu`` runs at a few thousand receiver items, and its query
-response, transferred items and union are compared bit for bit, plus the
-set algebra.  A ``slow`` twin runs it at full width (2^20 × 2048) on the GPU
-host, with the port on the card.  (The set helpers are copied here: a GPU
-host may have another package named ``tests`` on its path.)"""
+setting.  The fast test runs ``run_psu`` on a ``small_params()``-sized PS
+set with the same three eval primes and ps_low_degree 10 (so K2's sums span
+two 8-product chunks); a ``slow`` twin runs 1M-2048-com itself at full width
+(2^20 × 2048) on the GPU host, with the port on the card.  Both compare the
+query response, transferred items and union bit for bit, plus the set
+algebra.  (The set helpers and ``small_params`` are copied here: a GPU host
+may have another package named ``tests`` on its path.)"""
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +37,48 @@ from apsu_tpu_torch.mpc.oprf import DebugOprf
 from apsu_tpu_torch.ops.polyeval import ps_inner_plain
 
 PARAMS = "parameters/1M-2048-com.json"
+
+
+def small_params(
+    table_size=64,
+    max_items_per_bin=8,
+    hash_func_count=2,
+    n=256,
+    query_powers=(1, 2, 3, 4, 5, 6, 7, 8),
+    ps_low_degree=0,
+    coeff_bits=(40, 40, 30),
+):
+    """The parameter dict of tests/test_psu_e2e.py:small_params, for both
+    packages' ``PSUParams.from_dict``."""
+    return {
+        "table_params": {
+            "hash_func_count": hash_func_count,
+            "table_size": table_size,
+            "max_items_per_bin": max_items_per_bin,
+        },
+        "item_params": {"felts_per_item": 4},
+        "query_params": {
+            "ps_low_degree": ps_low_degree,
+            "query_powers": list(query_powers),
+        },
+        "seal_params": {
+            "plain_modulus": 65537,
+            "poly_modulus_degree": n,
+            "coeff_modulus_bits": list(coeff_bits),
+        },
+    }
+
+
+# 1M-2048-com's coefficient modulus (eval primes of 29, 29 and 28 bits) at
+# N=256, with PS inner sums of 10 products: low powers 1..10, high y, y^2, y^3
+SMALL_WIDE_PS = small_params(
+    table_size=96,
+    max_items_per_bin=43,
+    hash_func_count=3,
+    query_powers=(1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 22, 33),
+    ps_low_degree=10,
+    coeff_bits=(48, 30, 30),
+)
 
 
 def make_sets(rng, n_db, n_query, n_common):
@@ -66,11 +110,14 @@ def _keep_responses(receiver):
     return kept
 
 
-def _compare(n_db, n_query, n_common, device):
-    """run_psu at 1M-2048-com from the same seeded sets and parties,
-    reference on the CPU and port on ``device``: the query response, the
-    transferred items and the union must agree exactly."""
-    ref_p, port_p = RefParams.load_file(PARAMS), PSUParams.load_file(PARAMS)
+def _compare(params, n_db, n_query, n_common, device):
+    """run_psu at ``params`` (a parameter file or dict) from the same seeded
+    sets and parties, reference on the CPU and port on ``device``: the query
+    response, the transferred items and the union must agree exactly."""
+    if isinstance(params, dict):
+        ref_p, port_p = RefParams.from_dict(params), PSUParams.from_dict(params)
+    else:
+        ref_p, port_p = RefParams.load_file(params), PSUParams.load_file(params)
     db_items, query = make_sets(np.random.default_rng(0), n_db, n_query, n_common)
 
     r_db = RefDB(ref_p, RefOprf())
@@ -101,14 +148,16 @@ def _compare(n_db, n_query, n_common, device):
 
 
 def test_run_psu_matches_reference_1m_2048_com():
-    _compare(3000, 64, 32, "cpu")
+    """The fast twin of the full-width test below: 1M-2048-com's eval primes
+    on a small PS set (1500 × 64 items, 32 in common), with ph - 1 = 10."""
+    _compare(SMALL_WIDE_PS, 1500, 64, 32, "cpu")
 
 
 @pytest.mark.slow
 def test_run_psu_matches_reference_1m_2048_com_full():
     """2^20 DB items × 2048 query items (1024 in the DB), the port on the card
     where there is one."""
-    _compare(1 << 20, 2048, 1024, "cuda" if torch.cuda.is_available() else "cpu")
+    _compare(PARAMS, 1 << 20, 2048, 1024, "cuda" if torch.cuda.is_available() else "cpu")
 
 
 @pytest.mark.parametrize("bits,ph,nseg,C,fill", [
