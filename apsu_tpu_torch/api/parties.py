@@ -1,11 +1,13 @@
-"""The two parties and the query/response containers — port of the
-unlabeled paths of ``apsu_tpu/api/parties.py``.
+"""The two parties and the query/response containers — port of
+``apsu_tpu/api/parties.py``.
 
 The *Sender* holds the small set: it cuckoo-hashes its items, replaces them
 by slot-bound OPRF values, encrypts the source powers of its slot vectors and
 finally decrypts the response.  The *Receiver* holds the large preprocessed
 DB and evaluates the matching polynomials homomorphically (the
-Paterson–Stockmeyer path or the plain dot product, by parameter set).
+Paterson–Stockmeyer path or the plain dot product, by parameter set); on
+a labeled DB its response also carries the blinded label results, which
+``Sender.extract_labels`` decrypts.
 """
 
 from __future__ import annotations
@@ -27,11 +29,12 @@ from apsu_tpu_torch.engine.evaluator import (
     compute_power_tensor,
     compute_ps_power_tensors,
     eval_matching_polys,
+    eval_matching_polys_labeled,
     eval_matching_polys_ps,
 )
 from apsu_tpu_torch.engine.powers import plan_query
 from apsu_tpu_torch.hash.cuckoo import CuckooTable, cuckoo_insert
-from apsu_tpu_torch.hash.encoding import felts_from_items
+from apsu_tpu_torch.hash.encoding import felts_from_items, items_from_felts
 from apsu_tpu_torch.hash.items import LocFuncs
 
 
@@ -54,6 +57,7 @@ class QueryResponse:
 
     results: torch.Tensor                # [B, C, 2, Le, N] coeff-domain ct
     eval_level: int
+    label_results: Optional[torch.Tensor] = None  # labeled mode only, like results
 
 
 def _default_rng(rng):
@@ -67,8 +71,8 @@ def _default_rng(rng):
 class Sender:
     """Query side (small set)."""
 
-    def __init__(self, params: PSUParams, oprf, rng=None, oprf_factory=None,
-                 device="cuda"):
+    def __init__(self, params: PSUParams, oprf, rng=None, loc_seed: bytes = b"apsu-loc",
+                 oprf_factory=None, device="cuda"):
         """``oprf`` is an ``OprfBackend``, or None when ``oprf_factory`` is
         given: ``oprf_factory(cuckoo_table_items)`` builds the backend late,
         in ``create_query``, for the interactive OPRFs that bind the query
@@ -76,7 +80,8 @@ class Sender:
         secret (secret key, relinearization-key seed and errors, query seed
         and encryption noise, OPRF state), in the reference's order: a
         ``numpy.random.Generator`` or a ``CsRng`` (the default, from OS
-        entropy)."""
+        entropy).  ``loc_seed`` seeds the cuckoo location functions; it must
+        be the receiver DB's."""
         self.params = params
         self.oprf = oprf
         self.oprf_factory = oprf_factory
@@ -95,7 +100,7 @@ class Sender:
             if needs_relin else None
         )
         tp = params.table_params
-        self.locs = LocFuncs(tp.table_size, tp.hash_func_count)
+        self.locs = LocFuncs(tp.table_size, tp.hash_func_count, loc_seed)
         self.cuckoo: Optional[CuckooTable] = None
 
     def create_query(self, items: np.ndarray) -> QueryRequest:
@@ -145,6 +150,22 @@ class Sender:
     def peqt_matrix(self, slot_matrix: np.ndarray) -> np.ndarray:
         """[B, C, N] -> per-item felt blocks [C, table_size, fpi]."""
         return _slots_to_item_blocks(self.params, slot_matrix)
+
+    def extract_labels(self, resp: QueryResponse) -> np.ndarray:
+        """Labeled mode: decrypt the label results -> per-slot 16-byte label
+        candidates [C, table_size, 16] uint8.  Row (c, slot) holds the true
+        label exactly where that cache's matching result equals the mask
+        (elsewhere the ρ·M(x) blinding makes it garbage)."""
+        if resp.label_results is None:
+            raise ValueError("response carries no label results")
+        ct = Ciphertext(self.bfv.tensor(resp.label_results), is_ntt=False,
+                        level=resp.eval_level)
+        slot_matrix = to_u32(self.bfv.decode(self.bfv.decrypt_device(ct, self.sk)))
+        blocks = _slots_to_item_blocks(self.params, slot_matrix)   # [C, S, fpi]
+        C, S, fpi = blocks.shape
+        items = items_from_felts(blocks.reshape(C * S, fpi).astype(np.uint32),
+                                 self.params.item_bit_count_per_felt)
+        return items.view(np.uint8).reshape(C, S, 16)
 
 
 class Receiver:
@@ -197,7 +218,8 @@ class Receiver:
     def run_query(self, req: QueryRequest, timings: Optional[dict] = None) -> QueryResponse:
         """Evaluate one query.  ``timings``: pass a dict to get an in-call
         phase split {"powers_s", "eval_s"} (a device sync is inserted between
-        the power wavefront and the evaluation)."""
+        the power wavefront and the evaluation).  On a labeled DB the label
+        blinding ρ is drawn from ``rng`` after the mask."""
         p = self.params
         ql = self.query_lvl
         self.validate_query(req)
@@ -213,6 +235,7 @@ class Receiver:
         mask = self.rng.integers(0, t, size=(B, C, N), dtype=np.uint64).astype(np.uint32)
         self.last_mask = mask
 
+        label_results = None
         t0 = time.perf_counter()
         if self.plan.uses_ps:
             low_ntt, high_coeff = compute_ps_power_tensors(
@@ -243,6 +266,14 @@ class Receiver:
                 p.table_params.max_items_per_bin,
                 eval_level=self.db.eval_lvl,
             )
+        elif self.db.label_cache is not None:
+            rho = self.rng.integers(1, t, size=(B, C, N), dtype=np.uint64).astype(np.uint32)
+            res, res_l = eval_matching_polys_labeled(
+                self.bfv, powers, self.db.coeff_cache, self.db.const_slots,
+                self.bfv.tensor(mask), self.db.label_cache, self.db.label0_slots,
+                self.bfv.tensor(rho), self.db.eval_lvl,
+            )
+            label_results = res_l.data
         else:
             res = eval_matching_polys(
                 self.bfv, powers, self.db.coeff_cache, self.db.const_slots,
@@ -251,7 +282,7 @@ class Receiver:
         if timings is not None:
             synchronize(res.data)
             timings["eval_s"] = time.perf_counter() - t0
-        return QueryResponse(results=res.data, eval_level=res.level)
+        return QueryResponse(results=res.data, eval_level=res.level, label_results=label_results)
 
     def peqt_matrix(self) -> np.ndarray:
         """The last query's mask in per-item felt-block form [C, table_size, fpi]."""

@@ -1,5 +1,4 @@
-"""RNS-BFV on int32 residue tensors (port of ``apsu_tpu/core/bfv.py``, the
-parts the receiver's query and the sender's encrypt/decrypt run).
+"""RNS-BFV on int32 residue tensors (port of ``apsu_tpu/core/bfv.py``).
 
 * Ciphertext data is ``[..., n_components, L, N]`` int32: PLAIN residues in
   the coefficient domain, Montgomery-form residues in the NTT domain
@@ -9,7 +8,9 @@ parts the receiver's query and the sender's encrypt/decrypt run).
   Shenoy–Kumaresan conversion back to q.
 * Relinearization is RNS-gadget key switching with one digit per data limb
   and a special prime P; keys restrict exactly to any level prefix.
-* Decryption is the BEHZ {t, γ} scale-and-round (``decrypt_device``).
+* Decryption is the BEHZ {t, γ} scale-and-round (``decrypt_device``); the
+  host big-int CRT path (``decrypt``, ``noise_budget``) is the golden
+  reference for tests.
 * Fresh symmetric ciphertexts and relinearization keys can take their
   uniform ``a`` rows from a public 32-byte seed (``uniform_from_seed``), so
   the wire carries c0 / ksk[:, 0] plus the seed.
@@ -40,6 +41,7 @@ from apsu_tpu_torch.core.mod32 import (
     shoup_mul,
     shoup_pair,
     sub_mod,
+    to_u32,
 )
 from apsu_tpu_torch.core.params import SealParams
 from apsu_tpu_torch.core.rns import (
@@ -89,7 +91,7 @@ def uniform_from_seed(seed: bytes, base: RnsBase, shape_lead=()) -> np.ndarray:
     return out
 
 
-def _smul(x, c: int, m: int):
+def smul(x, c: int, m: int):
     """x·c mod m for a scalar modulus m (Shoup by a scalar constant)."""
     return shoup_mul(x, c, int(shoup_pair(np.uint32(c), np.uint32(m))), m)
 
@@ -382,23 +384,23 @@ class BfvContext:
         def conv_to(m):
             acc = torch.zeros(x.shape[:-2] + (x.shape[-1],), dtype=I32, device=x.device)
             for j in range(base.k):
-                acc = add_mod(acc, _smul(y[..., j, :], base.phat[j] % m, m), m)
+                acc = add_mod(acc, smul(y[..., j, :], base.phat[j] % m, m), m)
             return acc
 
         r_t = conv_to(t)
         r_g = conv_to(gamma)
-        v_t = _smul(r_t, (-pow(Ql % t, -1, t)) % t, t)
-        v_g = _smul(r_g, (-pow(Ql % gamma, -1, gamma)) % gamma, gamma)
+        v_t = smul(r_t, (-pow(Ql % t, -1, t)) % t, t)
+        v_g = smul(r_g, (-pow(Ql % gamma, -1, gamma)) % gamma, gamma)
 
         # center v_γ and fold: m = (v_t − ρ)·γ^{-1} mod t
         neg = v_g > (gamma >> 1)
         rho_neg = gamma - v_g.to(I64)  # |ρ| when negative
         diff = torch.where(
             neg,
-            add_mod(v_t, _smul(rho_neg, 1, t), t),
-            sub_mod(v_t, _smul(v_g, 1, t), t),
+            add_mod(v_t, smul(rho_neg, 1, t), t),
+            sub_mod(v_t, smul(v_g, 1, t), t),
         )
-        return _smul(diff, pow(gamma % t, -1, t), t)
+        return smul(diff, pow(gamma % t, -1, t), t)
 
     @property
     def _gamma(self) -> int:
@@ -411,6 +413,36 @@ class BfvContext:
                 g -= 2
             self._gamma_val = g
         return self._gamma_val
+
+    def decrypt(self, ct: Ciphertext, sk: SecretKey) -> np.ndarray:
+        """The plaintext polynomial(s) mod t by host big-int CRT (numpy
+        uint32, [..., N]): round(t·x/Q_l) mod t per coefficient."""
+        x = to_u32(self._dot_with_secret(ct, sk))   # [..., L, N] plain coeff
+        base = self.levels[ct.level]
+        big = base.compose(x)   # object ints in [0, Q_l), [..., N]
+        Ql, t = base.prod, self.t
+        half = Ql // 2
+        flat = big.reshape(-1)
+        out = np.empty(flat.shape, dtype=np.uint64)
+        for i in range(flat.shape[0]):
+            out[i] = ((int(flat[i]) * t + half) // Ql) % t
+        return out.reshape(big.shape).astype(np.uint32)
+
+    def noise_budget(self, ct: Ciphertext, sk: SecretKey) -> float:
+        """Bits of invariant-noise budget left (SEAL semantics), over every
+        coefficient on the host."""
+        x = to_u32(self._dot_with_secret(ct, sk))
+        base = self.levels[ct.level]
+        big = base.compose(x)
+        Ql = base.prod
+        max_frac = 0
+        for v in big.reshape(-1):
+            tx = int(v) * self.t
+            frac = tx - (tx + Ql // 2) // Ql * Ql  # centered remainder of tx mod Q_l
+            max_frac = max(max_frac, abs(frac))
+        if max_frac == 0:
+            return float(Ql.bit_length())
+        return max(0.0, math.log2(Ql) - 1.0 - math.log2(max_frac))
 
     def _dot_with_secret(self, ct: Ciphertext, sk: SecretKey) -> torch.Tensor:
         base = self.levels[ct.level]
@@ -444,6 +476,35 @@ class BfvContext:
         base = self._base(ct)
         return replace(ct, data=base.from_mont(base.ntt.intt(ct.data)), is_ntt=False)
 
+    def add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        assert a.is_ntt == b.is_ntt and a.level == b.level
+        return replace(a, data=add_mod(a.data, b.data, self._base(a).p_d))
+
+    def scale_plain(self, pt, level: int) -> torch.Tensor:
+        """round(Q_l·m/t) mod q_j for plaintext m [..., N]: plain residues
+        [..., L, N] (SEAL's add-plain scaling, exact in RNS)."""
+        return self._scale_impl(self.tensor(pt), level)
+
+    def add_plain(self, ct: Ciphertext, pt_poly) -> Ciphertext:
+        """Add Δ·pt to c0 (pt_poly: [..., N] plaintext polynomial mod t)."""
+        base = self._base(ct)
+        dm = self._scale_impl(self.tensor(pt_poly), ct.level)
+        if ct.is_ntt:
+            dm = base.ntt.ntt(base.to_mont(dm))
+        data = ct.data.clone()
+        data[..., 0, :, :] = add_mod(ct.data[..., 0, :, :], dm, base.p_d)
+        return replace(ct, data=data)
+
+    def Q_at(self, level: int) -> int:
+        return self.levels[level].prod
+
+    def mul_plain_ntt(self, ct: Ciphertext, pt_ntt_mont) -> Ciphertext:
+        """ct (NTT) ⊙ a plaintext already lifted, NTT'd and in Montgomery
+        form ([L, N])."""
+        assert ct.is_ntt
+        base = self._base(ct)
+        return replace(ct, data=mont_mul(ct.data, self.tensor(pt_ntt_mont), base.p_d, base.pni_d))
+
     def _scale_impl(self, m, level: int):
         """round(Q_l·m/t) mod q_j for plaintext m [..., N] (plain residues
         [..., L, N]):  ≡ (h − rem)·t^{-1} (mod q_j), rem = (r·m + h) mod t,
@@ -453,7 +514,7 @@ class BfvContext:
         r = base.prod % t
         h = t >> 1
         m1 = m[..., None, :]
-        rm = _smul(m1, r, t)
+        rm = smul(m1, r, t)
         rem = add_mod(rm, h, t)                                      # [..., 1, N] < t
         hq = col([h % p for p in base.primes], self.device)
         tinv_sh = shoup_cols([pow(t % p, -1, p) for p in base.primes], base.primes, self.device)
@@ -494,6 +555,31 @@ class BfvContext:
         x_q = _msum_tensor(q, fa_q[..., None, :, :, :], fb_q[..., None, :, :, :])
         x_b = _msum_tensor(bsk, fa_b[..., None, :, :, :], fb_b[..., None, :, :, :])
         return self._scaledown(mc, x_q, x_b, q, bsk)
+
+    def multiply(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        """BEHZ ct×ct multiply -> 3-component ciphertext (no relinearization)."""
+        assert a.level == b.level, "multiply needs matching levels"
+        lvl = a.level
+        fa = self.operand_forms(self.from_ntt(a).data, lvl)
+        fb = self.operand_forms(self.from_ntt(b).data, lvl)
+        return Ciphertext(self.tensor_scaledown_fused(*fa, *fb, lvl), is_ntt=False, level=lvl)
+
+    def square(self, a: Ciphertext) -> Ciphertext:
+        return self.multiply(a, a)
+
+    def multiply_sum(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        """Σ_m a[m]·b[m] over the batch axis at position -4, with one BEHZ
+        scale-down for the whole sum (lazy BEHZ: the products accumulate in
+        the NTT domain of q ∪ a Bsk widened by ⌈log2 M⌉ bits).  a, b:
+        [..., M, 2, L, N] at one level; returns the 3-component sum."""
+        assert a.level == b.level, "multiply_sum needs matching levels"
+        lvl = a.level
+        q = self.levels[lvl]
+        xa = self.from_ntt(a).data
+        M = int(xa.shape[-4])
+        fb_q, fb_bsk = self.premul_sum_rhs(b, M)
+        data = self.multiply_sum_fused(q.ntt.ntt(q.to_mont(xa)), xa, fb_q, fb_bsk, lvl, M)
+        return Ciphertext(data, is_ntt=False, level=lvl)
 
     def premul_sum_rhs(self, b: Ciphertext, m_terms: int):
         """NTT-Montgomery forms (fb_q, fb_bsk) of a multiply-sum rhs, in q

@@ -108,6 +108,10 @@ def mont_mul(a, b, p, p_neg_inv):
     return torch.where(t >= p, t - p, t).to(I32)
 
 
+def mont_sqr(a, p, p_neg_inv):
+    return mont_mul(a, a, p, p_neg_inv)
+
+
 def add_mod(a, b, p):
     s = _w(a) + _w(b)
     return torch.where(s >= p, s - p, s).to(I32)

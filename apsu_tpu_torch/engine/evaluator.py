@@ -1,11 +1,14 @@
 """The receiver's query: power wavefront and batched evaluation (port of
-the unlabeled parts of ``apsu_tpu/engine/evaluator.py``).
+``apsu_tpu/engine/evaluator.py``).
 
 Non-PS sets: ``compute_power_tensor`` runs the power DAG as a
 level-synchronous wavefront of batched BEHZ products and relinearizations,
 mod-switches every power to the evaluation level and NTTs it;
 ``eval_matching_polys`` computes Σ_j x^j ⊙ pt_j per (bundle, cache) row with
-kernel 3, leaves the NTT domain and adds Δ·encode(const + mask).
+kernel 3, leaves the NTT domain and adds Δ·encode(const + mask).  ``eval_matching_polys_labeled`` runs
+two such dot products over the one power tensor, the matching cache's and
+the label cache's, both through kernel 3, and blinds the label result by
+ρ·M(x).
 
 PS sets: ``compute_ps_power_tensors`` runs the low (x^1..x^ℓ) and high
 (y^1..y^nh, y = x^(ℓ+1)) power DAGs as ONE merged level-synchronous
@@ -27,7 +30,7 @@ from typing import Dict, Optional
 import torch
 
 from apsu_tpu_torch.core.bfv import BfvContext, Ciphertext, RelinKey
-from apsu_tpu_torch.core.mod32 import add_mod
+from apsu_tpu_torch.core.mod32 import add_mod, mont_mul
 from apsu_tpu_torch.engine.powers import PowerSchedule, QueryPlan
 from apsu_tpu_torch.ops.polyeval import eval_dot, ps_inner
 
@@ -134,6 +137,47 @@ def eval_matching_polys(
     dm = bfv._scale_impl(bfv.encode(cms), eval_level)   # round(Q_l·m/t), plain
     acc[:, :, 0] = add_mod(acc[:, :, 0], dm, base.p_d)
     return Ciphertext(acc, is_ntt=False, level=eval_level)
+
+
+def eval_matching_polys_labeled(
+    bfv: BfvContext,
+    powers_ntt: torch.Tensor,    # [B, D, 2, Le, N] NTT mont: x^1..x^D
+    coeff_cache: torch.Tensor,   # [B, C, Dp, Le, N] matching-poly planes
+    const_slots: torch.Tensor,   # [B, C, N] matching constant coefficients
+    mask_slots: torch.Tensor,    # [B, C, N] random mask r
+    label_cache: torch.Tensor,   # [B, C, Dp, Le, N] label-poly planes
+    label0_slots: torch.Tensor,  # [B, C, N] label constant coefficients L_0
+    rho_slots: torch.Tensor,     # [B, C, N] label blinding factor ρ
+    eval_level: int,
+):
+    """Labeled evaluation over one shared power tensor, slot-wise:
+
+        result_M = M(x) + Δ·r
+        result_L = L(x) + ρ·M(x)
+
+    At a matching slot M(x) = 0, so result_L decrypts to exactly the label
+    felt; elsewhere ρ·M(x) blinds L.  The two dot products Σ_j x^j ⊙ plane_j
+    (the reference pads the powers with a zero plane 0 and zero planes past
+    D, which add nothing) are kernel 3; the matching constant is folded in
+    the NTT domain so that the blinding sees the whole M(x).  Returns
+    (match_ct, label_ct), each [B, C, 2, Le, N] in the coefficient domain."""
+    base = bfv.levels[eval_level]
+    p, pni = base.p_d, base.pni_d
+    acc_m = eval_dot(powers_ntt, coeff_cache, base)   # NTT mont, sans constant
+    acc_l = eval_dot(powers_ntt, label_cache, base)
+    dm0 = base.ntt.ntt(base.to_mont(bfv._scale_impl(bfv.encode(const_slots), eval_level)))
+    acc_m[:, :, 0] = add_mod(acc_m[:, :, 0], dm0, p)
+    rho_ntt = bfv.lift_plaintext_ntt(bfv.encode(rho_slots), eval_level)
+    acc_l = add_mod(acc_l, mont_mul(acc_m, rho_ntt[:, :, None], p, pni), p)
+
+    res_m = base.from_mont(base.ntt.intt(acc_m))
+    dmask = bfv._scale_impl(bfv.encode(mask_slots), eval_level)
+    res_m[:, :, 0] = add_mod(res_m[:, :, 0], dmask, p)
+    res_l = base.from_mont(base.ntt.intt(acc_l))
+    dl0 = bfv._scale_impl(bfv.encode(label0_slots), eval_level)
+    res_l[:, :, 0] = add_mod(res_l[:, :, 0], dl0, p)
+    return (Ciphertext(res_m, is_ntt=False, level=eval_level),
+            Ciphertext(res_l, is_ntt=False, level=eval_level))
 
 
 _MERGE_OFF = 1 << 20  # disjoint target namespace for merged high powers

@@ -1,7 +1,8 @@
-"""Worst-case dense query probe (port of the PS path of
-``apsu_tpu/engine/probe.py``): build a synthetic DB with every bin packed to
-``max_items_per_bin``, run one real query through the production PS path,
-and check exact decryption plus the residual invariant-noise budget.
+"""Worst-case dense query probe (port of ``apsu_tpu/engine/probe.py``):
+build a synthetic DB with every bin packed to ``max_items_per_bin``, run one
+real query through the production path of the parameter set (the
+Paterson–Stockmeyer evaluation or the plain dot product), and check exact
+decryption plus the residual invariant-noise budget.
 """
 
 from __future__ import annotations
@@ -17,7 +18,12 @@ from apsu_tpu_torch.core.mod32 import to_u32
 from apsu_tpu_torch.core.params import PSUParams
 from apsu_tpu_torch.db.measured_levels import defer_relin, powers_at_eval, query_level
 from apsu_tpu_torch.db.receiver_db import ReceiverDB
-from apsu_tpu_torch.engine.evaluator import compute_ps_power_tensors, eval_matching_polys_ps
+from apsu_tpu_torch.engine.evaluator import (
+    compute_power_tensor,
+    compute_ps_power_tensors,
+    eval_matching_polys,
+    eval_matching_polys_ps,
+)
 from apsu_tpu_torch.engine.powers import plan_query
 
 
@@ -57,14 +63,13 @@ def dense_query_probe(
     budget_sample: int = 64,
     device="cuda",
 ) -> ProbeResult:
-    """Full-degree probe of one PS parameter set through the production
-    path.  Matched lanes MUST decrypt to exactly the mask."""
+    """Full-degree probe of one parameter set through the production path.
+    Matched lanes MUST decrypt to exactly the mask: a wrong decryption means
+    the noise margin of the parameter file is too small."""
     p = params
     t = p.seal_params.plain_modulus
     B, N, K = p.bundle_idx_count, p.poly_degree, p.table_params.max_items_per_bin
     plan = plan_query(p.query_params.query_powers, K, p.query_params.ps_low_degree)
-    if not plan.uses_ps:
-        raise NotImplementedError("the non-PS probe is not ported yet")
 
     db = ReceiverDB(p, device=device)
     roots = db.set_synthetic_dense(rng, n_caches=n_caches)  # [B, C, K, N]
@@ -83,15 +88,22 @@ def dense_query_probe(
     rk = bfv.gen_relin_key(sk, rng, level=ql) if bfv.qp is not None else None
 
     mask = rng.integers(0, t, size=(B, C, N), dtype=np.uint64).astype(np.uint32)
-    low_ntt, high_coeff = compute_ps_power_tensors(
-        bfv, cts, plan, rk, eval_level=db.eval_lvl,
-        at_eval=powers_at_eval(p), defer_relin=defer_relin(p),
-    )
-    res = eval_matching_polys_ps(
-        bfv, low_ntt, high_coeff, db.coeff_cache, db.ps_const_polys,
-        bfv.tensor(mask), rk, p.query_params.ps_low_degree, db.result_lvl, K,
-        eval_level=db.eval_lvl,
-    )
+    if plan.uses_ps:
+        low_ntt, high_coeff = compute_ps_power_tensors(
+            bfv, cts, plan, rk, eval_level=db.eval_lvl,
+            at_eval=powers_at_eval(p), defer_relin=defer_relin(p),
+        )
+        res = eval_matching_polys_ps(
+            bfv, low_ntt, high_coeff, db.coeff_cache, db.ps_const_polys,
+            bfv.tensor(mask), rk, p.query_params.ps_low_degree, db.result_lvl, K,
+            eval_level=db.eval_lvl,
+        )
+    else:
+        powers = compute_power_tensor(
+            bfv, cts, plan.low, rk, db.eval_lvl, at_eval=powers_at_eval(p),
+        ).movedim(0, 1).contiguous()
+        res = eval_matching_polys(bfv, powers, db.coeff_cache, db.const_slots,
+                                  bfv.tensor(mask), db.eval_lvl)
 
     vals = to_u32(bfv.decode(bfv.decrypt_device(res, sk)))
     n_matched = n_wrong = n_false = 0

@@ -8,11 +8,16 @@ multiply-shift universal hash over the 128-bit value, seeded from a public
 seed, so both parties (and both packages) place an item in the same slots.
 Location functions need only spread well; the pseudorandomness guarantees
 come from the slot-bound OPRF above them.
+
+``Bitstring`` and ``Item`` are the value types, and ``encrypt_label`` /
+``decrypt_label`` the label encryptor: AES-CTR under a key stretched from
+(item, nonce), so only a party that knows an item can read its label.
 """
 
 from __future__ import annotations
 
 import hashlib
+from dataclasses import dataclass
 from typing import Iterable, List
 
 import numpy as np
@@ -47,6 +52,74 @@ def hash_items(items: Iterable) -> np.ndarray:
 def random_items(n: int, rng: np.random.Generator) -> np.ndarray:
     """Synthetic 128-bit items (already in hash space), [n, 2] uint64."""
     return rng.integers(0, 1 << 64, size=(n, 2), dtype=np.uint64)
+
+
+Label = bytes
+EncryptedLabel = bytes
+
+
+@dataclass(frozen=True)
+class Bitstring:
+    """A value of an exact bit length: ``data`` holds ceil(bit_count/8)
+    bytes, the unused high bits of its last byte zero."""
+
+    data: bytes
+    bit_count: int
+
+    def __post_init__(self):
+        if len(self.data) != (self.bit_count + 7) // 8:
+            raise ValueError("data length inconsistent with bit_count")
+        rem = self.bit_count % 8
+        if rem and (self.data[-1] >> rem):
+            raise ValueError("padding bits of the last byte must be zero")
+
+
+@dataclass(frozen=True)
+class Item:
+    """A 128-bit item value; ``Item.of`` hashes arbitrary input (Blake2b)."""
+
+    lo: int
+    hi: int
+
+    @staticmethod
+    def of(data) -> "Item":
+        lo, hi = hash_item(data)
+        return Item(lo, hi)
+
+    def to_array(self) -> np.ndarray:
+        return np.array([[self.lo, self.hi]], dtype=np.uint64)
+
+
+HashedItem = Item  # post-OPRF values share the representation
+
+
+def _label_key(item: np.ndarray, nonce: bytes, stretch: int = 2) -> bytes:
+    """Key-stretched per-item label key: ``stretch`` rounds of Blake2b over
+    the item's 16 bytes and the nonce."""
+    seed = np.ascontiguousarray(item, dtype=np.uint64).tobytes() + nonce
+    k = seed
+    for _ in range(max(1, stretch)):
+        k = hashlib.blake2b(k, digest_size=32, person=b"apsu-lblkey").digest()
+    return k
+
+
+def encrypt_label(label: bytes, item: np.ndarray, nonce: bytes) -> bytes:
+    """AES-CTR encrypt a label under a key derived from (item, nonce); the
+    16-byte nonce is prepended, so decryption needs only the item."""
+    from cryptography.hazmat.primitives.ciphers import Cipher, algorithms, modes
+
+    if len(nonce) != 16:
+        raise ValueError("nonce must be 16 bytes")
+    enc = Cipher(algorithms.AES(_label_key(item, nonce)), modes.CTR(nonce)).encryptor()
+    return nonce + enc.update(bytes(label))
+
+
+def decrypt_label(blob: bytes, item: np.ndarray) -> bytes:
+    from cryptography.hazmat.primitives.ciphers import Cipher, algorithms, modes
+
+    nonce, ct = bytes(blob[:16]), bytes(blob[16:])
+    dec = Cipher(algorithms.AES(_label_key(item, nonce)), modes.CTR(nonce)).decryptor()
+    return dec.update(ct)
 
 
 class LocFuncs:

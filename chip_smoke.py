@@ -62,13 +62,38 @@ Phases, each printing one JSON object per line:
    plain versions at every call either process made (each process runs its
    CLI module under ``chip_smoke.py --cli-child RECORD MODULE ARGS``, which
    records each call's shapes, strides and primes);
-10. with ``--compare-ntt``, each given NTT source (an earlier ``ntt.cu``, or
+10. the receiver DB's lifecycle at 1M-2048-com (PS): ``set_data`` of 2^20
+   items under a non-default location seed (the ``Sender`` takes the same),
+   ``has_item`` on 1024 present and 1024 absent items, ``insert_or_assign``
+   of 2^14 new items (128 of them on the fullest slot, so that the cache axis
+   grows and the whole cache is rebuilt, the old one released first) and
+   ``remove`` of 2^14 old ones, ``run_psu`` with a 2048-item sender (1024 in
+   the final set, 64 of them inserted, and 64 removed items) against the
+   final set's algebra, with the removed items checked as members as a
+   control that must fail; then ``strip``, ``save`` to a temporary directory
+   in the checkout and ``load`` on the card: the loaded DB's response to a
+   seeded query equals the stripped DB's bit for bit, and the stripped DB
+   refuses ``insert_or_assign``; then ``place_data`` + ``build_partition((0,
+   5))`` against a direct ``cache_range=(0, 5)`` build, bit for bit; and the
+   kernels against their plain versions at every call the phase made;
+11. labeled mode at 1M-1-32 (non-PS, N=8192; the largest non-PS set whose
+   labels decrypt exactly, in either package): 2^20 items with 10-byte
+   labels (one in 64 encrypted with ``encrypt_label`` under a public nonce),
+   built at ``labeled_eval_level()``; a 1536-item query (1024 in the DB, all
+   on distinct slots, as the set's one location function needs) once cold
+   and three times warm, each with its own mask: every matched item returns
+   exactly its label (the encrypted ones decrypt to theirs), no other item
+   matches, and, as a control, a response read against another query's mask
+   fails; the labeled DB refuses ``insert_or_assign``; K3 launched twice a
+   query (the matching and the label cache), held against its plain version
+   at both calls of the last warm query, and the NTT at its shapes;
+12. with ``--compare-ntt``, each given NTT source (an earlier ``ntt.cu``, or
    a variant of it) built alone, checked and timed in turns with
    ``csrc/ntt.cu`` at the two largest NTT shapes (``compare_ntt``); with
    ``--compare-ps-inner``, each given PS inner-sum source likewise, at K2's
    four recorded shapes, with each build's registers, spills and SASS calls
    (``compare_ps_inner``);
-11. the ``kernels`` summary line, then ``{"ok": true, "device": ...}``.
+13. the ``kernels`` summary line, then ``{"ok": true, "device": ...}``.
 
 Any mismatch, build failure or launch failure raises, and the run exits
 non-zero without the ``ok`` line.  Exits non-zero at once when
@@ -114,6 +139,21 @@ COMMON_ITEMS = 1024
 # the two-process CLI: each process's time limit (seconds) and device
 CLI_TIMEOUT = 420
 CLI_DEVICE = "cuda"
+# the DB lifecycle: its location seed, the items inserted and removed, how
+# many inserted ones land on the fullest slot (enough to grow the cache
+# axis), and the inserted and removed items in its query
+LOC_SEED = b"chip-smoke-loc"
+CHANGED_ITEMS = 1 << 14
+GROW_ITEMS = 128
+QUERY_CHANGED = 64
+# labeled mode: its set (the largest non-PS set whose labels decrypt exactly
+# in both packages), the query's items and those in the DB, and one label in
+# ENCRYPT_EVERY encrypted under a public nonce
+LABELED_SET = "1M-1-32"
+LABELED_QUERY = 1536
+LABELED_COMMON = 1024
+ENCRYPT_EVERY = 64
+LABEL_NONCE = bytes(range(16))
 
 
 def emit(obj) -> None:
@@ -401,7 +441,7 @@ def replay_calls(recs: list, gen, label: str) -> dict:
         R, nseg, ph, L, N = shape
         rows = rand_residues((R, stride[0] // (L * N), L, N), q.primes, gen)
         cache5 = rows[:, : nseg * ph].reshape(shape)
-        if list(cache5.stride()) != stride:
+        if tuple(cache5.stride()) != tuple(stride):
             raise AssertionError(f"cannot lay out the recorded cache {shape} {stride}")
         low = rand_residues(tuple(low_shape), q.primes, gen)
         out["ps_inner"].append(check_ps_inner(low, cache5, q, f"{label} (recorded)"))
@@ -636,6 +676,17 @@ def main() -> int:
 
     # -- phase 9: the two-process CLI at 1M-2048-com (OSN PEQT, OP_REBIND) ----
     cli = cli_path(args, gen)
+    torch.cuda.empty_cache()
+
+    # -- phase 10: the DB lifecycle at 1M-2048-com (mutation, checkpoint) -----
+    t0 = time.perf_counter()
+    life = db_lifecycle_path(args, gen)
+    torch.cuda.empty_cache()
+
+    # -- phase 11: labeled mode at 1M-1-32 -------------------------------------
+    t1 = time.perf_counter()
+    lab = labeled_path(args, gen)
+    emit({"phase_wall_s": {"db_lifecycle": t1 - t0, "labeled": time.perf_counter() - t1}})
     if args.compare_ntt:
         torch.cuda.empty_cache()
         compare_ntt(args.compare_ntt, gen)
@@ -664,15 +715,19 @@ def main() -> int:
          "replaces": "apsu_tpu/ops/ntt4_pallas.py:504 (N=8192), "
                      "apsu_tpu/ops/ntt_pallas.py:118 (N=2048/4096)",
          "launches": launches["ntt"] + psu["launches"]["ntt"] + psu_ps["launches"]["ntt"]
-         + mpc["launches"]["ntt"] + cli["launches"]["ntt"],
+         + mpc["launches"]["ntt"] + cli["launches"]["ntt"] + life["launches"]["ntt"]
+         + lab["launches"]["ntt"],
          "launches_by_path": {"ps_16M-4096": launches["ntt"],
                               "psu_1M-2048-cmp": psu["launches"]["ntt"],
                               "psu_1M-2048-com": psu_ps["launches"]["ntt"],
                               "psu_mpc_1M-2048-cmp": mpc["launches"]["ntt"],
-                              "cli_1M-2048-com": cli["launches"]["ntt"]},
+                              "cli_1M-2048-com": cli["launches"]["ntt"],
+                              "db_lifecycle_1M-2048-com": life["launches"]["ntt"],
+                              "labeled_1M-1-32": lab["launches"]["ntt"]},
          "max_abs_err": max(ntt_ps["max_abs_err"], psu["ntt"]["max_abs_err"],
                             psu_ps["ntt"]["max_abs_err"], mpc["ntt"]["max_abs_err"],
-                            cli["ntt"]["max_abs_err"]),
+                            cli["ntt"]["max_abs_err"], life["ntt"]["max_abs_err"],
+                            lab["ntt"]["max_abs_err"]),
          "tolerance": TOLERANCE,
          "ms": ntt_ps["largest_ms"], "plain_ms": ntt_ps["largest_plain_ms"],
          "bound_ms": ntt_ps["largest_bound_ms"], "bound_by": ntt_ps["largest_bound_by"],
@@ -685,16 +740,19 @@ def main() -> int:
          "n4096_cmp": ntt_summary(psu["ntt"]),
          "n4096_com": ntt_summary(psu_ps["ntt"]),
          "psu_mpc_1M-2048-cmp": ntt_summary(mpc["ntt"]),
-         "cli_1M-2048-com": ntt_summary(cli["ntt"], ntt_keys + ("distinct_shapes",))},
+         "cli_1M-2048-com": ntt_summary(cli["ntt"], ntt_keys + ("distinct_shapes",)),
+         "db_lifecycle_1M-2048-com": ntt_summary(life["ntt"], ntt_keys + ("distinct_shapes",)),
+         "labeled_1M-1-32": ntt_summary(lab["ntt"])},
         {"name": "ps_inner", "route": "cuda", "source": "apsu_tpu_torch/csrc/ps_inner.cu",
          "replaces": "apsu_tpu/ops/polyeval.py:434",
          "launches": launches["ps_inner"] + psu_ps["launches"]["ps_inner"]
-         + cli["launches"]["ps_inner"],
+         + cli["launches"]["ps_inner"] + life["launches"]["ps_inner"],
          "launches_by_path": {"ps_16M-4096": launches["ps_inner"],
                               "psu_1M-2048-com": psu_ps["launches"]["ps_inner"],
-                              "cli_1M-2048-com": cli["launches"]["ps_inner"]},
-         "max_abs_err": max(d["max_abs_err"]
-                            for d in [ps, psu_ps["ps_inner"]] + ps_checks + cli["ps_inner"]),
+                              "cli_1M-2048-com": cli["launches"]["ps_inner"],
+                              "db_lifecycle_1M-2048-com": life["launches"]["ps_inner"]},
+         "max_abs_err": max(d["max_abs_err"] for d in [ps, psu_ps["ps_inner"]] + ps_checks
+                            + cli["ps_inner"] + life["ps_inner"]),
          "tolerance": TOLERANCE,
          "ms": ps["ms"], "plain_ms": ps["plain_ms"],
          "bound_ms": ps["bound_ms"], "bound_by": ps["bound_by"],
@@ -702,14 +760,17 @@ def main() -> int:
          "shape": {"low": ps["low"], "cache5": ps["cache5"]},
          "other_cases": [{**{k: d[k] for k in ps_keys},
                           **ceiling_keys(ps_work(d["low"], d["cache5"]), "mul_wide")}
-                         for d in [psu_ps["ps_inner"]] + ps_checks + cli["ps_inner"]]},
+                         for d in [psu_ps["ps_inner"]] + ps_checks + cli["ps_inner"]
+                         + life["ps_inner"]]},
         {"name": "eval_dot", "route": "cuda", "source": "apsu_tpu_torch/csrc/eval_dot.cu",
          "replaces": "apsu_tpu/ops/polyeval.py:484",
-         "launches": psu["launches"]["eval_dot"] + mpc["launches"]["eval_dot"],
+         "launches": psu["launches"]["eval_dot"] + mpc["launches"]["eval_dot"]
+         + lab["launches"]["eval_dot"],
          "launches_by_path": {"psu_1M-2048-cmp": psu["launches"]["eval_dot"],
-                              "psu_mpc_1M-2048-cmp": mpc["launches"]["eval_dot"]},
+                              "psu_mpc_1M-2048-cmp": mpc["launches"]["eval_dot"],
+                              "labeled_1M-1-32": lab["launches"]["eval_dot"]},
          "max_abs_err": max([psu["eval_dot"]["max_abs_err"], mpc["eval_dot"]["max_abs_err"]]
-                            + [d["max_abs_err"] for d in dot_checks]),
+                            + [d["max_abs_err"] for d in dot_checks + lab["eval_dot"]]),
          "tolerance": TOLERANCE,
          "ms": psu["eval_dot"]["ms"], "plain_ms": psu["eval_dot"]["plain_ms"],
          "bound_ms": psu["eval_dot"]["bound_ms"], "bound_by": psu["eval_dot"]["bound_by"],
@@ -720,7 +781,8 @@ def main() -> int:
          "other_cases": [{**{k: d[k] for k in ("case", "powers", "cache", "primes_bits", "ms",
                                                "plain_ms", "bound_ms")},
                           **ceiling_keys(dot_work(d["powers"], d["cache"]), "mul_wide")}
-                         for d in dot_checks + [mpc["eval_dot"]]]},
+                         for d in dot_checks + [mpc["eval_dot"]] + lab["eval_dot"]],
+         "labeled_launches_per_query": lab["launches_per_query"]["eval_dot"]},
         *ceil["kernels"],
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1455,6 +1517,326 @@ def cli_path(args, gen) -> dict:
     checks = replay_calls(recorded, gen, f"{name} CLI")
     emit({"cli_ntt": checks["ntt"], "path": name})
     return {"launches": launches, **checks}
+
+
+def _changed_sets(params, rng):
+    """Phase 10's items: the DB's 2^20, the CHANGED_ITEMS inserted (GROW_ITEMS
+    of them located on the fullest slot) and the CHANGED_ITEMS removed, and
+    the 2048-item query: 1024 in the final set (QUERY_CHANGED of them
+    inserted), QUERY_CHANGED removed ones, the rest in neither."""
+    from apsu_tpu_torch.hash.items import LocFuncs
+
+    tp = params.table_params
+    locs = LocFuncs(tp.table_size, tp.hash_func_count, LOC_SEED)
+    db_items = rng.integers(0, 1 << 64, size=(DB_ITEMS, 2), dtype=np.uint64)
+    fullest = int(np.argmax(np.bincount(locs.locations(db_items).reshape(-1),
+                                        minlength=tp.table_size)))
+    cand = rng.integers(0, 1 << 64, size=(2 * GROW_ITEMS * tp.table_size // tp.hash_func_count,
+                                          2), dtype=np.uint64)
+    on_fullest = cand[(locs.locations(cand) == fullest).any(axis=1)][:GROW_ITEMS]
+    new_items = np.concatenate([
+        rng.integers(0, 1 << 64, size=(CHANGED_ITEMS - len(on_fullest), 2), dtype=np.uint64),
+        on_fullest])
+    gone_idx = rng.choice(DB_ITEMS, size=CHANGED_ITEMS, replace=False)
+    kept = np.ones(DB_ITEMS, dtype=bool)
+    kept[gone_idx] = False
+    gone = db_items[gone_idx]
+    final = np.concatenate([db_items[kept], new_items])
+    old = db_items[kept][rng.choice(int(kept.sum()), size=COMMON_ITEMS - QUERY_CHANGED,
+                                    replace=False)]
+    query = np.concatenate([
+        old, new_items[rng.choice(CHANGED_ITEMS, size=QUERY_CHANGED, replace=False)],
+        gone[:QUERY_CHANGED],
+        rng.integers(0, 1 << 64, size=(QUERY_ITEMS - COMMON_ITEMS - QUERY_CHANGED, 2),
+                     dtype=np.uint64)])
+    rng.shuffle(query)
+    return db_items, new_items, gone, final, query, len(on_fullest)
+
+
+def db_lifecycle_path(args, gen) -> dict:
+    """Phase 10: the receiver DB's lifecycle at 1M-2048-com (PS: K1, K2) with
+    every kernel call recorded (shapes only), then each kernel held against
+    its plain version at every recorded call."""
+    from apsu_tpu_torch.api.parties import Receiver, Sender
+    from apsu_tpu_torch.api.protocol import run_psu
+    from apsu_tpu_torch.core.params import PSUParams
+    from apsu_tpu_torch.db.receiver_db import ReceiverDB
+    from apsu_tpu_torch.mpc.oprf import DebugOprf
+    from apsu_tpu_torch.ops import ntt as ntt_op
+    from apsu_tpu_torch.ops import polyeval
+
+    name = "1M-2048-com"
+    params = PSUParams.load_file(str(ROOT / "parameters" / f"{name}.json"))
+    rng = np.random.default_rng(args.seed + 20)
+    db_items, new_items, gone, final, query, on_fullest = _changed_sets(params, rng)
+    final_set, gone_set, q_set = as_set(final), as_set(gone), as_set(query)
+    absent = rng.integers(0, 1 << 64, size=(COMMON_ITEMS, 2), dtype=np.uint64)
+    present = db_items[rng.choice(DB_ITEMS, size=COMMON_ITEMS, replace=False)]
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    calls = kernel_calls()
+    records = _Records()
+    logger = logging.getLogger("apsu_tpu_torch")
+    level = logger.level
+    res = {"db_lifecycle_path": name, "loc_seed": LOC_SEED.decode(), "db_items": DB_ITEMS,
+           "inserted": CHANGED_ITEMS, "inserted_on_fullest_slot": on_fullest,
+           "removed": CHANGED_ITEMS, "query_items": len(query), "seconds": {}}
+    sec = res["seconds"]
+    ntt_op.launches = polyeval.launches = polyeval.dot_launches = 0
+    with recording_kernels(calls, keep=False), \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt-", dir=ROOT) as ckpt:
+        db = ReceiverDB(params, DebugOprf(), loc_seed=LOC_SEED, device="cuda")
+        stats, sec["set_data"] = synced(lambda: db.set_data(db_items))
+        cache_gb = db.coeff_cache.numel() * 4 / 1e9
+        res["built"] = {"n_caches": stats.n_caches, "max_bin_load": stats.max_bin_load,
+                        "cache_shape": list(db.coeff_cache.shape), "cache_gb": cache_gb}
+        has = {"present": int(db.has_item(present).sum()), "absent": int(db.has_item(absent).sum())}
+        res["has_item"] = has
+        if has != {"present": COMMON_ITEMS, "absent": 0}:
+            raise AssertionError(f"has_item is not exact: {has}")
+
+        mem_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        logger.addHandler(records)
+        logger.setLevel(logging.DEBUG)
+        try:
+            stats, sec["insert"] = synced(lambda: db.insert_or_assign(new_items))
+        finally:
+            logger.removeHandler(records)
+            logger.setLevel(level)
+        grow_peak = torch.cuda.max_memory_allocated()
+        grown = [m for m in records.messages if "grows the cache axis" in m]
+        res["insert"] = {"n_caches": stats.n_caches, "cache_shape": list(db.coeff_cache.shape),
+                         "grow_log": grown, "allocated_before_gb": mem_before / 1e9,
+                         "peak_gb": grow_peak / 1e9,
+                         "peak_above_before_gb": (grow_peak - mem_before) / 1e9,
+                         "new_cache_gb": db.coeff_cache.numel() * 4 / 1e9}
+        if not grown or stats.n_caches <= res["built"]["n_caches"]:
+            raise AssertionError(f"the insert did not grow the cache axis: {res['insert']}")
+        before, after_release, old_gb = (float(x) for x in re.search(
+            r"allocated ([\d.]+) GB before, ([\d.]+) GB after releasing the old cache "
+            r"\(([\d.]+) GB\)", grown[0]).groups())
+        if before - after_release < old_gb - 1e-3:
+            raise AssertionError(f"the grow path did not free the old cache first: {grown[0]}")
+        if grow_peak - (mem_before - cache_gb * 1e9) >= 2 * res["insert"]["new_cache_gb"] * 1e9:
+            raise AssertionError(f"the grow path held two caches: {res['insert']}")
+
+        stats, sec["remove"] = synced(lambda: db.remove(gone))
+        res["removed_stats"] = {"n_items": stats.n_items, "n_insertions": stats.n_insertions,
+                                "n_caches": stats.n_caches}
+        if db.has_item(gone).any() or not db.has_item(new_items).all():
+            raise AssertionError("has_item disagrees with the inserts and removals")
+
+        snd = Sender(params, DebugOprf(), rng=np.random.default_rng(args.seed + 21),
+                     loc_seed=LOC_SEED, device="cuda")
+        recv = Receiver(params, db, rng=np.random.default_rng(args.seed + 22))
+        psu, sec["run_psu"] = synced(lambda: run_psu(params, query, final, sender=snd,
+                                                     receiver=recv))
+        transferred, union = as_set(psu.transferred), as_set(psu.union)
+        exact = (transferred == q_set - final_set and union == final_set | q_set
+                 and not transferred & final_set)
+        # control: the removed items taken as members
+        control = transferred == q_set - (final_set | gone_set)
+        res["run_psu"] = {"transferred": len(transferred), "expected": len(q_set - final_set),
+                          "removed_in_query_transferred": len(transferred & gone_set),
+                          "oracle_exact": exact, "control_removed_as_members_passes": control}
+        if not exact:
+            raise AssertionError("run_psu after insert/remove: set-algebra oracle failed")
+        if control:
+            raise AssertionError("the oracle accepted the removed items as members")
+
+        db.strip()
+        try:
+            db.insert_or_assign(new_items[:4])
+            raise AssertionError("a stripped DB accepted insert_or_assign")
+        except ValueError:
+            pass
+        _, sec["save"] = synced(lambda: db.save(ckpt))
+        files = sorted(os.listdir(ckpt))
+        res["checkpoint"] = {"files": files,
+                             "bytes": sum(os.path.getsize(os.path.join(ckpt, f)) for f in files)}
+        loaded, sec["load"] = synced(lambda: ReceiverDB.load(ckpt, oprf=DebugOprf(),
+                                                             device="cuda"))
+        req = Sender(params, DebugOprf(), rng=np.random.default_rng(args.seed + 23),
+                     loc_seed=LOC_SEED, device="cuda").create_query(query)
+        resp = Receiver(params, db, rng=np.random.default_rng(args.seed + 24)).run_query(req)
+        resp_l = Receiver(params, loaded, rng=np.random.default_rng(args.seed + 24)).run_query(req)
+        same = torch.equal(resp.results, resp_l.results)
+        res["checkpoint"].update({"loaded_equals_stripped": same,
+                                  "checksums": [int(r.results.to(torch.int64).sum())
+                                                for r in (resp, resp_l)]})
+        if not same:
+            raise AssertionError("the loaded DB's response differs from the stripped DB's")
+        del db, loaded, recv, resp, resp_l, req, psu
+        torch.cuda.empty_cache()
+
+        placer = ReceiverDB(params, DebugOprf(), loc_seed=LOC_SEED, device="cuda")
+        c_total, sec["place_data"] = synced(lambda: placer.place_data(db_items))
+        part, sec["build_partition"] = synced(lambda: placer.build_partition((0, 5)))
+        direct = ReceiverDB(params, DebugOprf(), bfv=placer.bfv, loc_seed=LOC_SEED,
+                            cache_range=(0, 5))
+        direct.set_data(db_items)
+        equal = (torch.equal(part.coeff_cache, direct.coeff_cache)
+                 and torch.equal(part.ps_const_polys, direct.ps_const_polys))
+        res["partition"] = {"caches": c_total, "cache_range": [0, 5],
+                            "cache_shape": list(part.coeff_cache.shape),
+                            "equals_direct_cache_range_build": equal}
+        if not equal:
+            raise AssertionError("build_partition != a direct cache_range build")
+        del placer, part, direct
+    launches = {"ntt": ntt_op.launches, "ps_inner": polyeval.launches,
+                "eval_dot": polyeval.dot_launches}
+    res.update({"launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    emit(res)
+    if launches["ntt"] == 0 or launches["ps_inner"] == 0 or launches["eval_dot"]:
+        raise AssertionError(f"the DB lifecycle path's launches are wrong: {launches}")
+    counted = {k: len(calls[k]) for k in launches}
+    if counted != launches:
+        raise AssertionError(f"recorded calls {counted} != launches {launches}")
+    torch.cuda.empty_cache()
+    checks = replay_calls([calls], gen, f"{name} DB lifecycle")
+    emit({"db_lifecycle_ntt": checks["ntt"], "path": name})
+    return {"launches": launches, **checks}
+
+
+def labeled_path(args, gen) -> dict:
+    """Phase 11: labeled mode at LABELED_SET (non-PS: K1, K3)."""
+    from apsu_tpu_torch.api.parties import Receiver, Sender, _slots_to_item_blocks
+    from apsu_tpu_torch.core.bfv import Ciphertext
+    from apsu_tpu_torch.core.params import PSUParams
+    from apsu_tpu_torch.db.receiver_db import ReceiverDB
+    from apsu_tpu_torch.hash.items import LocFuncs, decrypt_label, encrypt_label
+    from apsu_tpu_torch.mpc.oprf import DebugOprf
+    from apsu_tpu_torch.ops import ntt as ntt_op
+    from apsu_tpu_torch.ops import polyeval
+
+    name = LABELED_SET
+    params = PSUParams.load_file(str(ROOT / "parameters" / f"{name}.json"))
+    tp = params.table_params
+    rng = np.random.default_rng(args.seed + 30)
+    db_items = rng.integers(0, 1 << 64, size=(DB_ITEMS, 2), dtype=np.uint64)
+    nbytes = params.item_bit_count // 8
+    plain = rng.integers(0, 256, size=(DB_ITEMS, nbytes), dtype=np.uint8)
+    labels = np.zeros((DB_ITEMS, 16), dtype=np.uint8)
+    labels[:, :nbytes] = plain
+    for i in range(0, DB_ITEMS, ENCRYPT_EVERY):   # the nonce is public: only the ciphertext is stored
+        blob = encrypt_label(plain[i].tobytes(), db_items[i: i + 1], LABEL_NONCE)
+        labels[i, :nbytes] = np.frombuffer(blob[16:], dtype=np.uint8)
+    # the query, each item's DB row beside it (-1: not in the DB); with one
+    # location function a cuckoo table holds items of distinct slots only
+    first = LocFuncs(tp.table_size, tp.hash_func_count).locations(db_items)[:, 0]
+    _, one_a_slot = np.unique(first, return_index=True)
+    common = rng.choice(one_a_slot, size=LABELED_COMMON, replace=False)
+    cand = rng.integers(0, 1 << 64, size=(64 * LABELED_QUERY, 2), dtype=np.uint64)
+    free = ~np.isin(LocFuncs(tp.table_size, tp.hash_func_count).locations(cand)[:, 0],
+                    first[common])
+    _, fresh = np.unique(LocFuncs(tp.table_size, tp.hash_func_count).locations(cand[free])[:, 0],
+                         return_index=True)
+    fresh = cand[free][rng.choice(fresh, size=LABELED_QUERY - LABELED_COMMON, replace=False)]
+    query = np.concatenate([db_items[common], fresh])
+    row = np.concatenate([common, np.full(len(fresh), -1)])
+    perm = rng.permutation(len(query))
+    query, row = query[perm], row[perm]
+
+    ntt_op.launches = polyeval.launches = polyeval.dot_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    db = ReceiverDB(params, DebugOprf(), device="cuda")
+    stats = db.set_data(db_items, labels=labels)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches,
+                      "ps_inner": polyeval.launches}
+    levels = {"eval_lvl": db.eval_lvl, "labeled_eval_level": db.labeled_eval_level(),
+              "unlabeled_eval_level": db.eval_level()}
+    emit({"labeled_path": name, "db_items": DB_ITEMS, "query_items": len(query),
+          "common_items": LABELED_COMMON, "label_bytes": nbytes,
+          "encrypted_labels": len(range(0, DB_ITEMS, ENCRYPT_EVERY)), "set_data_s": build_s,
+          "n_caches": stats.n_caches, "max_bin_load": stats.max_bin_load,
+          "cache_shape": list(db.coeff_cache.shape), "label_cache_shape": list(db.label_cache.shape),
+          "cache_gb": 2 * db.coeff_cache.numel() * 4 / 1e9, **levels,
+          "build_launches": build_launches})
+    if not levels["eval_lvl"] == levels["labeled_eval_level"] > levels["unlabeled_eval_level"]:
+        raise AssertionError(f"labeled build level: {levels}")
+    try:
+        db.insert_or_assign(db_items[:4])
+        raise AssertionError("a labeled DB accepted insert_or_assign")
+    except ValueError:
+        pass
+
+    snd = Sender(params, DebugOprf(), rng=np.random.default_rng(args.seed + 31), device="cuda")
+    req = snd.create_query(query)
+    recv = Receiver(params, db, rng=np.random.default_rng(args.seed + 32))
+    slot_q = snd.cuckoo.item_index                           # [S] query row or -1
+    filled = snd.cuckoo.filled
+    in_db = filled & (row[np.maximum(slot_q, 0)] >= 0)
+    enc = in_db & (row[np.maximum(slot_q, 0)] % ENCRYPT_EVERY == 0)
+
+    def check(resp, mask):
+        """(the matched slots are exactly the DB items', their labels exact,
+        the encrypted ones decrypting to theirs; matched slots)."""
+        hit = (_slots_to_item_blocks(params, snd.extract_matrix(resp))
+               == _slots_to_item_blocks(params, mask)).all(axis=2)       # [C, S]
+        got = snd.extract_labels(resp)[hit.argmax(axis=0), np.arange(len(filled))]   # [S, 16]
+        matched = hit.any(axis=0) & filled
+        ok = np.array_equal(matched, in_db) and np.array_equal(
+            got[in_db], labels[row[slot_q[in_db]]])
+        ok = ok and all(
+            decrypt_label(LABEL_NONCE + got[s, :nbytes].tobytes(), query[slot_q[s]: slot_q[s] + 1])
+            == plain[row[slot_q[s]]].tobytes() for s in np.flatnonzero(enc))
+        return ok, int(matched.sum())
+
+    calls = kernel_calls()  # the kernel launches of the last warm query
+    ntt_op.launches = polyeval.launches = polyeval.dot_launches = 0
+    runs = []
+    for i in range(WARM + 1):
+        with recording_kernels(calls, on=i == WARM):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resp = recv.run_query(req)
+            torch.cuda.synchronize()
+            runs.append((resp, recv.last_mask, time.perf_counter() - t0))
+    launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches,
+                "ps_inner": polyeval.launches}
+    oracles = [check(resp, mask) for resp, mask, _ in runs]
+    control = check(runs[-1][0], runs[0][1])
+    warm = [t for _, _, t in runs[1:]]
+    emit({"labeled_first_query_s": runs[0][2], "labeled_warm_query_s": warm,
+          "labeled_warm_best_s": min(warm), "expected_matches": int(in_db.sum()),
+          "encrypted_label_matches": int(enc.sum()),
+          "oracle_per_query": [list(o) for o in oracles], "control_other_mask": list(control),
+          "launches": launches, "launches_per_query": {k: v / (WARM + 1)
+                                                       for k, v in launches.items()},
+          "result_shape": list(runs[-1][0].results.shape),
+          "result_checksums": [int(r.results.to(torch.int64).sum()) for r, _, _ in runs],
+          "label_checksums": [int(r.label_results.to(torch.int64).sum()) for r, _, _ in runs],
+          "noise_budget_bits": {   # host big-int CRT over bundle 0, cache 0 of the last query
+              name: snd.bfv.noise_budget(Ciphertext(getattr(runs[-1][0], name)[0, 0],
+                                                    is_ntt=False, level=db.eval_lvl), snd.sk)
+              for name in ("results", "label_results")},
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if not all(ok for ok, _ in oracles):
+        raise AssertionError("labeled query: a matched item's label is wrong, or a match is")
+    if control[0]:
+        raise AssertionError("the labels checked against another query's mask passed")
+    if launches["eval_dot"] != 2 * (WARM + 1) or launches["ntt"] == 0 or launches["ps_inner"]:
+        raise AssertionError(f"the labeled path's launches are wrong: {launches}")
+
+    ntt_summary = check_ntt_shapes(calls["ntt"], gen)
+    emit({"labeled_ntt_warm_query": ntt_summary, "path": name})
+    evals = []
+    for (pw_shape, cache, base), which in zip(calls["eval_dot"], ("matching", "label")):
+        powers = rand_residues(pw_shape, base.primes, gen)
+        evals.append(check_eval_dot(powers, cache, base, f"{name} labeled query ({which} cache)"))
+    return {"launches": launches, "ntt": ntt_summary, "eval_dot": evals,
+            "launches_per_query": {k: v / (WARM + 1) for k, v in launches.items()}}
 
 
 if __name__ == "__main__":

@@ -125,3 +125,113 @@ def test_multiply_sum_fused_matches(ctx):
     assert _eq(r_tot, p_tot)
     assert tuple(p_tot.shape) == (3, ref.q.k, ref.n)
     assert jnp.asarray(r_tot).dtype == jnp.uint32
+
+
+# ---------------------------------------------------------------------------
+# the rest of the BFV surface, one small-parameter ciphertext each (N=256,
+# t=65537, 40/40-bit data primes and a 30-bit special prime)
+# ---------------------------------------------------------------------------
+
+SMALL = {
+    "table_params": {"hash_func_count": 2, "table_size": 64, "max_items_per_bin": 8},
+    "item_params": {"felts_per_item": 4},
+    "query_params": {"ps_low_degree": 0, "query_powers": [1, 2, 3, 4, 5, 6, 7, 8]},
+    "seal_params": {"plain_modulus": 65537, "poly_modulus_degree": 256,
+                    "coeff_modulus_bits": [40, 40, 30]},
+}
+
+
+@pytest.fixture(scope="module")
+def small():
+    ref = RefBfv(RefParams.from_dict(SMALL).seal_params)
+    port = BfvContext(PSUParams.from_dict(SMALL).seal_params, device="cpu")
+    r_rng, p_rng = np.random.default_rng(7), np.random.default_rng(7)
+    r_sk, p_sk = ref.gen_secret_key(r_rng), port.gen_secret_key(p_rng)
+    slots = np.random.default_rng(8).integers(0, ref.t, size=(3, ref.n), dtype=np.uint64)
+    slots = slots.astype(np.uint32)
+    r_ct = ref.encrypt_symmetric(ref.encode(slots), r_sk, r_rng)
+    p_ct = port.encrypt_symmetric(port.encode(slots), p_sk, p_rng)
+    assert _eq(r_ct.data, p_ct.data)
+    return dict(ref=ref, port=port, r_sk=r_sk, p_sk=p_sk, slots=slots, r_ct=r_ct, p_ct=p_ct)
+
+
+def _ct(cls, c, i, **kw):
+    return cls(c.data[i], is_ntt=c.is_ntt, level=c.level, **kw)
+
+
+def _op_case(op, ref, port, r_ct, p_ct, slots):
+    """(reference value, port value, expected plaintext slots or None)."""
+    lvl, t = ref.q.k, ref.t
+    ra, rb = _ct(RefCt, r_ct, 0), _ct(RefCt, r_ct, 1)
+    pa, pb = _ct(Ciphertext, p_ct, 0), _ct(Ciphertext, p_ct, 1)
+    s0, s1 = slots[0].astype(np.uint64), slots[1].astype(np.uint64)
+    if op == "add":
+        return ref.add(ra, rb).data, port.add(pa, pb).data, (s0 + s1) % t
+    if op == "add_ntt":
+        return (ref.add(ref.to_ntt(ra), ref.to_ntt(rb)).data,
+                port.add(port.to_ntt(pa), port.to_ntt(pb)).data, None)
+    if op in ("add_plain", "add_plain_ntt"):
+        pt = slots[2]
+        if op == "add_plain":
+            return (ref.add_plain(ra, ref.encode(pt)).data, port.add_plain(pa, port.encode(pt)).data,
+                    (s0 + slots[2]) % t)
+        return (ref.add_plain(ref.to_ntt(ra), ref.encode(pt)).data,
+                port.add_plain(port.to_ntt(pa), port.encode(pt)).data, None)
+    if op == "scale_plain":
+        return ref.scale_plain(ref.encode(slots[2]), 2), port.scale_plain(port.encode(slots[2]), 2), None
+    if op == "mul_plain_ntt":
+        r_pt, p_pt = ref.lift_plaintext_ntt(ref.encode(slots[2])), port.lift_plaintext_ntt(port.encode(slots[2]))
+        return (ref.mul_plain_ntt(ref.to_ntt(ra), r_pt).data,
+                port.mul_plain_ntt(port.to_ntt(pa), p_pt).data, None)
+    if op == "smul":
+        from apsu_tpu.core.mod32 import shoup_mul as r_shoup
+        from apsu_tpu.core.mod32 import shoup_pair as r_pair
+        from apsu_tpu_torch.core.bfv import smul
+
+        x, c = slots[2], 12345
+        want = r_shoup(jnp.asarray(x), np.uint32(c), np.uint32(r_pair(c, t)), np.uint32(t))
+        return want, smul(port.tensor(x), c, t), x.astype(np.uint64) * c % t
+    if op in ("multiply", "square"):
+        r3 = ref.square(ra) if op == "square" else ref.multiply(ra, rb)
+        p3 = port.square(pa) if op == "square" else port.multiply(pa, pb)
+        assert p3.size == 3 and p3.level == lvl
+        want = s0 * (s0 if op == "square" else s1) % t
+        return r3.data, p3.data, want
+    if op == "multiply_sum":
+        r3 = ref.multiply_sum(RefCt(r_ct.data[:2], False, lvl), RefCt(r_ct.data[1:], False, lvl))
+        p3 = port.multiply_sum(Ciphertext(p_ct.data[:2], False, lvl),
+                               Ciphertext(p_ct.data[1:], False, lvl))
+        return r3.data, p3.data, (s0 * s1 + s1 * slots[2]) % t
+    raise ValueError(op)
+
+
+@pytest.mark.parametrize("op", ["add", "add_ntt", "add_plain", "add_plain_ntt", "scale_plain",
+                                "mul_plain_ntt", "smul", "multiply", "square", "multiply_sum"])
+def test_bfv_op_matches(small, op):
+    """Each op's output tensor equals the reference's bit for bit; where the
+    op has a plaintext meaning, the port's host decryption gives it."""
+    ref, port = small["ref"], small["port"]
+    r_val, p_val, want = _op_case(op, ref, port, small["r_ct"], small["p_ct"], small["slots"])
+    assert _eq(r_val, p_val)
+    if want is not None and op != "smul":
+        ct = Ciphertext(p_val, is_ntt=False, level=ref.q.k)
+        assert np.array_equal(to_u32(port.decode(port.decrypt(ct, small["p_sk"]))),
+                              want.astype(np.uint32))
+    elif op == "smul":
+        assert np.array_equal(to_u32(p_val), want.astype(np.uint32))
+
+
+def test_host_decrypt_noise_budget_and_q_at_match(small):
+    """The host big-int decryption and the noise budget equal the
+    reference's, on a fresh ciphertext and on a 3-component product."""
+    ref, port = small["ref"], small["port"]
+    lvl = ref.q.k
+    assert port.Q_at(lvl) == ref.Q_at(lvl) and port.Q_at(1) == ref.Q_at(1)
+    r3 = ref.multiply(_ct(RefCt, small["r_ct"], 0), _ct(RefCt, small["r_ct"], 1))
+    p3 = port.multiply(_ct(Ciphertext, small["p_ct"], 0), _ct(Ciphertext, small["p_ct"], 1))
+    for r_c, p_c in [(small["r_ct"], small["p_ct"]), (r3, p3)]:
+        got = port.decrypt(p_c, small["p_sk"])
+        assert np.array_equal(np.asarray(ref.decrypt(r_c, small["r_sk"])), got)
+        assert np.array_equal(got, to_u32(port.decrypt_device(p_c, small["p_sk"])))
+        budget = port.noise_budget(p_c, small["p_sk"])
+        assert budget == ref.noise_budget(r_c, small["r_sk"]) and budget > 0

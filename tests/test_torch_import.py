@@ -28,7 +28,9 @@ def test_import_leaves_jax_and_reference_out():
         "apsu_tpu_torch.cli.csv_io", "apsu_tpu_torch.net.wire",
         "apsu_tpu_torch.utils.log", "apsu_tpu_torch.utils.stopwatch",
         "apsu_tpu_torch.ops.roofline", "apsu_tpu_torch.tools.vpu_roofline",
-        "apsu_tpu_torch.tools.ntt4p_gl_ab",
+        "apsu_tpu_torch.tools.ntt4p_gl_ab", "apsu_tpu_torch.cli.pd_tool",
+        "apsu_tpu_torch.engine.probe", "apsu_tpu_torch.engine.interpolate",
+        "apsu_tpu_torch.db.receiver_db", "apsu_tpu_torch.hash.items",
         *(f"apsu_tpu_torch.mpc.{m}" for m in (
             "baseot", "duplex", "ec", "endgame", "kkrt", "oprf", "osn", "osn_peqt",
             "otext", "peqt", "prg", "silent", "softspoken")),

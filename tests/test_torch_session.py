@@ -243,9 +243,9 @@ def test_rebind_releases_the_consumed_cache_first(monkeypatch):
     built, alive_at_build = [], []
     build = ReceiverDB._build_cache
 
-    def spy(self, roots, counts):
+    def spy(self, roots, counts, *level):
         alive_at_build.append(sum(ref() is not None for ref in built))
-        build(self, roots, counts)
+        build(self, roots, counts, *level)
         built.append(weakref.ref(self.coeff_cache))
 
     monkeypatch.setattr(ReceiverDB, "_build_cache", spy)
