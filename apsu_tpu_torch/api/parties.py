@@ -215,12 +215,10 @@ class Receiver:
         if needs_relin and req.relin_key is None:
             raise ValueError("query requires relinearization keys")
 
-    def run_query(self, req: QueryRequest, timings: Optional[dict] = None) -> QueryResponse:
-        """Evaluate one query.  ``timings``: pass a dict to get an in-call
-        phase split {"powers_s", "eval_s"} (a device sync is inserted between
-        the power wavefront and the evaluation).  On a labeled DB the label
-        blinding ρ is drawn from ``rng`` after the mask."""
-        p = self.params
+    def _prepare(self, req: QueryRequest):
+        """Validate ``req`` and draw the query's mask [B, C, N] (kept as
+        ``last_mask``).  Returns (source ciphertexts, relinearization key or
+        None, mask)."""
         ql = self.query_lvl
         self.validate_query(req)
         data = self.bfv.tensor(req.powers_data)
@@ -230,10 +228,21 @@ class Receiver:
         }
         rk = RelinKey(self.bfv.tensor(req.relin_key), ql) if req.relin_key is not None else None
         B, C = self.db.coeff_cache.shape[0], self.db.coeff_cache.shape[1]
-        N = p.poly_degree
-        t = p.seal_params.plain_modulus
-        mask = self.rng.integers(0, t, size=(B, C, N), dtype=np.uint64).astype(np.uint32)
+        t = self.params.seal_params.plain_modulus
+        mask = self.rng.integers(0, t, size=(B, C, self.params.poly_degree),
+                                 dtype=np.uint64).astype(np.uint32)
         self.last_mask = mask
+        return cts, rk, mask
+
+    def run_query(self, req: QueryRequest, timings: Optional[dict] = None) -> QueryResponse:
+        """Evaluate one query.  ``timings``: pass a dict to get an in-call
+        phase split {"powers_s", "eval_s"} (a device sync is inserted between
+        the power wavefront and the evaluation).  On a labeled DB the label
+        blinding ρ is drawn from ``rng`` after the mask."""
+        p = self.params
+        cts, rk, mask = self._prepare(req)
+        B, C, N = mask.shape
+        t = p.seal_params.plain_modulus
 
         label_results = None
         t0 = time.perf_counter()

@@ -71,11 +71,6 @@ from apsu_tpu_torch.net.wire import (
 
 _log = logging.getLogger("apsu_tpu_torch")
 
-PARALLEL_SLICE = (
-    "the DistributedReceiver grid (workers=, --workers, --cache-parts) belongs to "
-    "the port's parallel slice (parallel/*), which is not ported yet"
-)
-
 
 class QueryClient:
     """Query-party session against a (possibly resident) DB server.
@@ -242,10 +237,17 @@ def serve_db_party(
 
     The OPRF backend follows the client's handshake: "kkrt" (interactive
     build, exactly one query per correlation) or "ecdh" (offline build,
-    unlimited queries against the resident cache).  ``workers``/
-    ``cache_parts`` (a DistributedReceiver grid) raise NotImplementedError."""
-    if workers or cache_parts != 1:
-        raise NotImplementedError(PARALLEL_SLICE)
+    unlimited queries against the resident cache).
+
+    ``workers``: Duplex links to ``db_worker`` processes; the DB is then
+    built and evaluated as their (bundle-range × cache-range) partition,
+    ``cache_parts`` cache ranges to a bundle range, with this party as the
+    coordinator (``parallel.multihost.DistributedReceiver``), and the
+    workers are told "bye" when the session ends.  ``timings`` then also
+    gets the coordinator's ``dist_*`` phase split of the last query and the
+    workers' build and rebind times."""
+    if cache_parts != 1 and not workers:
+        raise ValueError("cache_parts splits the DB over workers; pass workers=")
     timings = timings if timings is not None else {}
     rng = rng if rng is not None else CsRng()
     t = TypedDuplex(ch)
@@ -264,19 +266,26 @@ def serve_db_party(
         db = None
 
     t0 = time.perf_counter()
+    dist = None
     if db is None:
         if oprf_kind == "ecdh":
             oprf = EcdhOprfServer(rng)
         else:
             oprf = KkrtSender(t.scoped(OP_OPRF), params.table_params.table_size, rng)
-        if rebind_src is not None:
+        if workers:
+            from apsu_tpu_torch.parallel.multihost import DistributedReceiver
+
+            dist = DistributedReceiver(params, workers, items, oprf=oprf, rng=rng,
+                                       cache_parts=cache_parts, device=device)
+            timings["worker_build_s"] = list(dist.worker_build_s)
+        elif rebind_src is not None:
             db = rebind_src.rebind(oprf)
         else:
             db = ReceiverDB(params, oprf, device=device)
             db.set_data(items)
     timings["db_build"] = time.perf_counter() - t0
-    recv = Receiver(params, db, rng=rng)
-    oprf_obj = db.oprf
+    recv = dist if dist is not None else Receiver(params, db, rng=rng)
+    oprf_obj = recv.oprf if dist is not None else db.oprf
 
     transferred: List[np.ndarray] = []
     served = 0
@@ -302,6 +311,14 @@ def serve_db_party(
             if oprf_kind == "ecdh":
                 t.send_error("OP_REBIND on an ECDH session")
                 raise ProtocolError("OP_REBIND on an ECDH session")
+            if dist is not None:
+                t0 = time.perf_counter()
+                oprf_obj = KkrtSender(t.scoped(OP_OPRF), params.table_params.table_size, rng)
+                dist.rebind(oprf_obj)   # each worker releases its consumed cache first
+                kkrt_consumed = False
+                timings["rebind"] = time.perf_counter() - t0
+                timings["worker_rebind_s"] = list(dist.worker_rebind_s)
+                continue
             if not db.can_rebind:
                 msg = "OP_REBIND: this DB retains no placement and cannot rebind"
                 t.send_error(msg)
@@ -348,9 +365,13 @@ def serve_db_party(
             rk = None
         powers = recv.bfv.ct_from_seed(c0, a_seed, level=ql)
         t0 = time.perf_counter()
-        resp = recv.run_query(
-            QueryRequest(power_list=plist, powers_data=powers.data, relin_key=rk)
-        )
+        req = QueryRequest(power_list=plist, powers_data=powers.data, relin_key=rk)
+        if dist is not None:
+            dtm: Dict[str, float] = {}
+            resp = dist.run_query(req, timings=dtm)
+            timings.update({f"dist_{k}": v for k, v in dtm.items()})
+        else:
+            resp = recv.run_query(req)
         timings["run_query"] = time.perf_counter() - t0
         res_np = to_u32(resp.results)
         primes = recv.bfv.levels[resp.eval_level].primes
@@ -368,6 +389,8 @@ def serve_db_party(
         timings["endgame"] = time.perf_counter() - t0
         served += 1
         kkrt_consumed = True
+    if dist is not None:
+        dist.close()
     return transferred
 
 

@@ -6,7 +6,12 @@ Usage:
       --db-file db.csv --port 1212 --out union.csv [--device cpu]
 
 The DB's cache lives on ``--device`` (default ``cuda``; without a card it
-raises).  On a card the last log lines give the process's peak device memory
+raises).  With ``--workers`` the DB is partitioned over ``worker_cli``
+processes, ``--cache-parts`` cache ranges to a bundle range, and this
+process coordinates them:
+
+  python -m apsu_tpu_torch.cli.receiver_cli ... --workers HOST:PORT,... [--cache-parts 2]
+  On a card the last log lines give the process's peak device memory
 and the launches of each hand-written kernel.
 """
 
@@ -63,10 +68,17 @@ def main(argv=None):
         "DB before exiting (0 = forever); M != 1 builds the DB with the "
         "ECDH backend up front (KKRT clients get a per-session rebuild)",
     )
-    ap.add_argument("--workers", default=None, metavar="HOST:PORT,...",
-                    help="DB worker endpoints (not ported yet: the parallel slice)")
-    ap.add_argument("--cache-parts", type=int, default=1,
-                    help="cache-axis partitions (not ported yet: the parallel slice)")
+    ap.add_argument(
+        "--workers", default=None, metavar="HOST:PORT,...",
+        help="comma-separated DB worker endpoints (worker_cli processes); the DB "
+        "then builds and evaluates as a bundle-range partition across them with "
+        "this process as coordinator",
+    )
+    ap.add_argument(
+        "--cache-parts", type=int, default=1,
+        help="split each bundle range's cache axis across this many of the "
+        "workers (worker count must be bundle_parts*cache_parts)",
+    )
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-level", default="info")
     ap.add_argument("--log-file", default=None)
@@ -74,17 +86,16 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device of the DB's cache (default cuda)")
     args = ap.parse_args(argv)
-
-    from apsu_tpu_torch.api.session import PARALLEL_SLICE
-
-    if args.workers or args.cache_parts != 1:
-        ap.error(PARALLEL_SLICE)
+    if args.workers and args.clients != 1:
+        ap.error("--clients is incompatible with --workers")
+    if args.cache_parts != 1 and not args.workers:
+        ap.error("--cache-parts needs --workers")
 
     from apsu_tpu_torch.api.session import serve_clients, serve_db_party
     from apsu_tpu_torch.cli.csv_io import decode_payloads, load_csv, write_union_csv
     from apsu_tpu_torch.core.params import PSUParams
     from apsu_tpu_torch.device import resolve
-    from apsu_tpu_torch.mpc.duplex import SocketListener
+    from apsu_tpu_torch.mpc.duplex import SocketDuplex, SocketListener
     from apsu_tpu_torch.utils.log import configure
     from apsu_tpu_torch.utils.stopwatch import GLOBAL
 
@@ -94,6 +105,13 @@ def main(argv=None):
     items, _, strings = load_csv(args.db_file)
     log.info("DB: %d items; params N=%d table=%d; device %s", len(strings),
              params.poly_degree, params.table_params.table_size, device)
+
+    workers = []
+    if args.workers:
+        for ep in args.workers.split(","):
+            host, _, port = ep.strip().rpartition(":")
+            workers.append(SocketDuplex.connect(host or "127.0.0.1", int(port)))
+        log.info("coordinating %d DB workers", len(workers))
 
     rng = _make_rng(args.seed)
     timings = {}
@@ -116,17 +134,23 @@ def main(argv=None):
         with GLOBAL.span("serve_query"):
             per_query = serve_db_party(
                 ch, params, items, rng, timings=timings,
-                max_queries=args.serve if args.serve > 0 else None, device=device,
+                max_queries=args.serve if args.serve > 0 else None,
+                workers=workers, cache_parts=args.cache_parts, device=device,
             )
     new_payloads = [p for q in per_query for p in decode_payloads(q)]
     union = sorted(set(strings) | set(new_payloads))
     write_union_csv(args.out, union)
     log.info("union: %d items -> %s (%d queries, received %d new)", len(union),
              args.out, len(per_query), len(new_payloads))
-    log.info("timings: %s", {k: round(v, 3) for k, v in timings.items()})
+    # values are floats except the workers' build and rebind times (lists)
+    log.info("timings: %s", {k: round(v, 3) if isinstance(v, float) else v
+                             for k, v in timings.items()})
     if ch is not None:
         log.info("bytes sent=%d received=%d", ch.bytes_sent, ch.bytes_received)
         ch.close()
+    for i, w in enumerate(workers):
+        log.info("worker %d link: bytes sent=%d received=%d", i, w.bytes_sent, w.bytes_received)
+        w.close()
     log_device_report(log, device)
     print(GLOBAL.report(), file=sys.stderr)
 

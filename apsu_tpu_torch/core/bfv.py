@@ -52,7 +52,7 @@ from apsu_tpu_torch.core.rns import (
     ShenoyKumaresanConv,
     shoup_cols,
 )
-from apsu_tpu_torch.device import resolve
+from apsu_tpu_torch.device import canonical, resolve
 
 NOISE_STDDEV = 3.2  # SEAL default error stddev
 BSK_BITS = 28       # Bsk prime width (the reference's APSU_BSK_BITS default)
@@ -239,6 +239,18 @@ class BfvContext:
         if key not in self._mul_ctx_cache:
             self._mul_ctx_cache[key] = ExactDiv(self.levels[level], self.special)
         return self._mul_ctx_cache[key]
+
+    def on(self, device) -> "BfvContext":
+        """This context's parameters on ``device``: itself when it lives
+        there, else one copy for each other device, built once and kept (a
+        context's tables live on one device; a mesh shard runs on its own)."""
+        dev = canonical(device)
+        if dev == canonical(self.device):
+            return self
+        peers = self.__dict__.setdefault("_peers", {})
+        if dev not in peers:
+            peers[dev] = BfvContext(self.sp, device=dev)
+        return peers[dev]
 
     def tensor(self, x) -> torch.Tensor:
         """int32 residue tensor on this context's device from a tensor or a

@@ -20,3 +20,12 @@ def synchronize(x: torch.Tensor) -> None:
     """Wait for the device work that produces ``x`` (no-op on the CPU)."""
     if x.is_cuda:
         torch.cuda.synchronize(x.device)
+
+
+def canonical(device) -> torch.device:
+    """``device`` with its index spelled out (``cuda`` -> ``cuda:<current>``),
+    so that two names of one device compare equal."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev

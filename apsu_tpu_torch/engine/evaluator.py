@@ -21,6 +21,13 @@ result level and the random mask.  Every transform goes through kernel 1.
 The reference's defaults are fixed behaviour here: merged wavefront,
 deduplicated operand forms, 8 targets per batched multiply, Bsk width 28 and
 the hand-written PS inner-sum kernel.
+
+Row parallelism: with ``mesh=`` (``parallel/mesh.py``) every per-row stage of
+the power wavefront (operand transforms, BEHZ products, relinearizations, the
+final mod-switch + NTT) splits its flattened (group × bundle) rows over the
+mesh (``_rowmap``), the counterpart of the reference's ``_make_rowmap``.  The
+PS evaluation's rows go through one function, ``ps_eval_rows``, which the
+direct path and the sharded one (``parallel/runtime.py``) both call.
 """
 
 from __future__ import annotations
@@ -31,11 +38,56 @@ import torch
 
 from apsu_tpu_torch.core.bfv import BfvContext, Ciphertext, RelinKey
 from apsu_tpu_torch.core.mod32 import add_mod, mont_mul
+from apsu_tpu_torch.device import canonical
 from apsu_tpu_torch.engine.powers import PowerSchedule, QueryPlan
 from apsu_tpu_torch.ops.polyeval import eval_dot, ps_inner
 
 MUL_CHUNK = 8            # targets per batched multiply + relinearize
 ROW_BUDGET_BYTES = 40 << 30  # device bytes one eval row chunk may use
+
+
+def _rk_on(rk: RelinKey, bfv: BfvContext) -> RelinKey:
+    """``rk`` with its key on ``bfv``'s device."""
+    if rk.ksk.device == canonical(bfv.device):
+        return rk
+    return RelinKey(rk.ksk.to(bfv.device), rk.level)
+
+
+def _rowmap(bfv: BfvContext, mesh=None):
+    """The row-parallelism hook: ``rowmap(f, *xs)`` applies ``f(ctx, *rows)``
+    (batch-agnostic over one leading row axis, computing with the context
+    ``ctx``) to tensors whose two leading axes are (group, bundle).  Without
+    a mesh it is ``f(bfv, *xs)``.  With one, the flattened rows split into
+    the mesh's contiguous row ranges; each range moves to its shard's device
+    (a view when it is there already) and runs there with that device's
+    context; the results are concatenated in row order on ``bfv``'s device,
+    which must be the mesh's first.  Each row's value is the computation
+    the direct path makes, so the result is bit-identical (the reference's
+    ``_make_rowmap`` likewise repartitions work, never values)."""
+    if mesh is None:
+        return lambda f, *xs: f(bfv, *xs)
+    if canonical(bfv.device) != mesh.devices[0]:
+        raise ValueError(f"the context lives on {bfv.device}, the mesh starts at "
+                         f"{mesh.devices[0]}")
+    ctxs = [bfv.on(d) for d in mesh.devices]
+
+    def rowmap(f, *xs):
+        G, Bq = xs[0].shape[0], xs[0].shape[1]
+        rows = G * Bq
+        flat = [x.reshape((rows,) + tuple(x.shape[2:])) for x in xs]
+        parts = []
+        for ctx, (r0, r1) in zip(ctxs, mesh.row_ranges(rows)):
+            if r1 > r0:
+                parts.append(f(ctx, *[x[r0:r1].to(ctx.device) for x in flat]))
+        tup = isinstance(parts[0], tuple)
+        outs = []
+        for k in range(len(parts[0]) if tup else 1):
+            ys = [(y[k] if tup else y).to(bfv.device) for y in parts]
+            y = ys[0] if len(ys) == 1 else torch.cat(ys)
+            outs.append(y.reshape((G, Bq) + tuple(y.shape[1:])))
+        return tuple(outs) if tup else outs[0]
+
+    return rowmap
 
 
 def _run_schedule(
@@ -45,6 +97,7 @@ def _run_schedule(
     relin_key: Optional[RelinKey],
     level: Optional[int] = None,
     defer_terminal: bool = False,
+    rowmap=None,
 ) -> Dict[int, Ciphertext]:
     """Level-synchronous wavefront: each DAG level runs as batched
     multiplies + relinearizations over its (target, a, b) products, chunked
@@ -53,8 +106,11 @@ def _run_schedule(
     every product that consumes it.
 
     ``defer_terminal``: targets no later level consumes stay 3-component;
-    the caller mod-switches and relinearizes them at the eval level."""
+    the caller mod-switches and relinearizes them at the eval level.
+    ``rowmap``: the row-parallelism hook (``_rowmap``) of every per-row
+    stage; None runs them directly."""
     k = level if level is not None else bfv.q.k
+    rm = rowmap if rowmap is not None else _rowmap(bfv)
     forms: Dict[int, tuple] = {}
     used = {a for lg in schedule.levels for (_, a, _) in lg} | {
         b for lg in schedule.levels for (_, _, b) in lg
@@ -68,17 +124,18 @@ def _run_schedule(
             if s not in forms
         )
         if new:
-            fq, fb = bfv.operand_forms(torch.stack([have[s].data for s in new]), k)
+            fq, fb = rm(lambda ctx, x: ctx.operand_forms(x, k),
+                        torch.stack([have[s].data for s in new]))
             for i, s in enumerate(new):
                 forms[s] = (fq[i], fb[i])
         for c0 in range(0, len(level_grp), MUL_CHUNK):
             group = level_grp[c0: c0 + MUL_CHUNK]
-            prod3 = bfv.tensor_scaledown_fused(
+            prod3 = rm(
+                lambda ctx, aq, ab, bq, bb: ctx.tensor_scaledown_fused(aq, ab, bq, bb, k),
                 torch.stack([forms[a][0] for (_, a, _) in group]),
                 torch.stack([forms[a][1] for (_, a, _) in group]),
                 torch.stack([forms[b][0] for (_, _, b) in group]),
                 torch.stack([forms[b][1] for (_, _, b) in group]),
-                k,
             )
             defer_idx = [
                 i for i, (t, _, _) in enumerate(group) if defer_terminal and t not in used
@@ -86,7 +143,8 @@ def _run_schedule(
             now_idx = [i for i in range(len(group)) if i not in defer_idx]
             if now_idx:
                 sel = prod3 if len(now_idx) == len(group) else prod3[now_idx]
-                rel = bfv.relinearize(Ciphertext(sel, is_ntt=False, level=k), relin_key).data
+                rel = rm(lambda ctx, x: ctx.relinearize(
+                    Ciphertext(x, is_ntt=False, level=k), _rk_on(relin_key, ctx)).data, sel)
                 for j, i in enumerate(now_idx):
                     have[group[i][0]] = Ciphertext(rel[j], is_ntt=False, level=k)
             for i in defer_idx:  # stays 3-component; caller relinearizes
@@ -101,21 +159,29 @@ def compute_power_tensor(
     relin_key: Optional[RelinKey],
     eval_level: int,
     at_eval: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """Power tensor for the non-PS path: NTT-Montgomery powers x^1..x^D
-    [D, ..., 2, Le, N] at ``eval_level``.  ``source_cts`` are the fresh query
-    ciphertexts (coeff domain, query level), identically batched; the
+    [D, B, 2, Le, N] at ``eval_level``.  ``source_cts`` are the fresh query
+    ciphertexts (coeff domain, query level) [B, 2, L, N] each; the
     wavefront runs at the query level, or at the evaluation level when
-    ``at_eval`` (from the measured-level table)."""
+    ``at_eval`` (from the measured-level table).  ``mesh``: split every
+    per-row stage over the mesh's shards (``_rowmap``; ``bfv`` lives on the
+    mesh's first device); bit-identical to the direct path."""
     src_lvl = next(iter(source_cts.values())).level
     if schedule.levels and relin_key is None:
         raise ValueError("power schedule requires relinearization keys")
+    rm = _rowmap(bfv, mesh)
     wf_lvl = eval_level if at_eval else src_lvl
     have = {s: bfv.mod_switch_to(ct, wf_lvl) for s, ct in source_cts.items()}
-    have = _run_schedule(bfv, have, schedule, relin_key, level=wf_lvl)
+    have = _run_schedule(bfv, have, schedule, relin_key, level=wf_lvl, rowmap=rm)
     stack = torch.stack([have[p].data for p in range(1, schedule.max_power + 1)])
-    switched = bfv.mod_switch_to(Ciphertext(stack, is_ntt=False, level=wf_lvl), eval_level)
-    return bfv.to_ntt(switched).data
+
+    def fin(ctx, x):
+        switched = ctx.mod_switch_to(Ciphertext(x, is_ntt=False, level=wf_lvl), eval_level)
+        return ctx.to_ntt(switched).data
+
+    return rm(fin, stack)
 
 
 def eval_matching_polys(
@@ -212,13 +278,15 @@ def compute_ps_power_tensors(
     eval_level: Optional[int] = None,
     at_eval: bool = False,
     defer_relin: bool = False,
+    mesh=None,
 ):
     """Power tensors for the PS path.  Returns (low_ntt [B, ℓ, 2, L, N],
     high_coeff [B, nh, 2, L, N]) at the evaluation level, the power axis
     behind the leading batch axis (the reference's ``batch_first=True``):
     x^1..x^ℓ in NTT-Montgomery form for the inner sums, y^1..y^nh in the
     coefficient domain for the outer BEHZ products.  ``at_eval``/
-    ``defer_relin`` come from the measured-level table (db/measured_levels)."""
+    ``defer_relin`` come from the measured-level table (db/measured_levels).
+    ``mesh``: as in ``compute_power_tensor``."""
     lvl = eval_level or bfv.q.k
     src_lvl = next(iter(source_cts.values())).level  # fresh query level
     low_srcs = tuple(sorted(s for s in source_cts if s <= plan.ps_low_degree))
@@ -228,6 +296,7 @@ def compute_ps_power_tensors(
     if need_rk and relin_key is None:
         raise ValueError("power schedule requires relinearization keys")
     wf_lvl = lvl if at_eval else src_lvl
+    rm = _rowmap(bfv, mesh)
 
     def src(s):
         return bfv.mod_switch_to(source_cts[s], wf_lvl)
@@ -236,7 +305,7 @@ def compute_ps_power_tensors(
     have.update({s + _MERGE_OFF: src(s * ph) for s in high_srcs})
     have = _run_schedule(
         bfv, have, _merge_schedules(plan.low, plan.high), relin_key,
-        level=wf_lvl, defer_terminal=defer_relin,
+        level=wf_lvl, defer_terminal=defer_relin, rowmap=rm,
     )
     nlow = plan.low.max_power
     items = [have[p] for p in range(1, nlow + 1)] + [
@@ -247,17 +316,21 @@ def compute_ps_power_tensors(
     i2 = [i for i, c in enumerate(items) if c.size == 2]
     i3 = [i for i, c in enumerate(items) if c.size == 3]
 
-    def switch(idx):
-        x = torch.stack([items[i].data for i in idx])
-        return bfv.mod_switch_to(Ciphertext(x, is_ntt=False, level=wf_lvl), lvl)
+    def switch(ctx, x):
+        return ctx.mod_switch_to(Ciphertext(x, is_ntt=False, level=wf_lvl), lvl)
 
-    parts = [switch(i2).data] if i2 else []
+    def stack(idx):
+        return torch.stack([items[i].data for i in idx])
+
+    parts = [rm(lambda ctx, x: switch(ctx, x).data, stack(i2))] if i2 else []
     if i3:
-        parts.append(bfv.relinearize(switch(i3), relin_key).data)
+        parts.append(rm(lambda ctx, x: ctx.relinearize(
+            switch(ctx, x), _rk_on(relin_key, ctx)).data, stack(i3)))
     full = torch.cat(parts)
     order = sorted(range(len(i2 + i3)), key=lambda j: (i2 + i3)[j])
     full = full[order]  # back to power order
-    low_ntt = bfv.to_ntt(Ciphertext(full[:nlow], is_ntt=False, level=lvl)).data
+    low_ntt = rm(lambda ctx, x: ctx.to_ntt(Ciphertext(x, is_ntt=False, level=lvl)).data,
+                 full[:nlow])
     high_coeff = full[nlow:]
     return low_ntt.movedim(0, 1).contiguous(), high_coeff.movedim(0, 1).contiguous()
 
@@ -284,6 +357,83 @@ def _row_chunk(bfv, lvl, nh, ell, B, C, planes, N):
     return row_chunk, False
 
 
+def ps_dims(low_powers_ntt, planes: int, ps_low_degree: int, max_degree: int):
+    """(nh, ph) of a PS evaluation, checked against the operands' shapes."""
+    ph = ps_low_degree + 1
+    nh = max_degree // ph
+    assert low_powers_ntt.shape[1] == ps_low_degree
+    assert planes >= nh * ph + ps_low_degree + 1, (
+        f"coefficient cache has {planes} planes; PS gather needs {nh * ph + ps_low_degree + 1}"
+    )
+    return nh, ph
+
+
+def _ps_rows(bfv, cache_r, const_r, mask_r, low_c, fbq_c, fbb_c, cpb, rk, lvl,
+             result_level, nh, ph):
+    """Result ciphertexts [R, 2, Lr, N] of R rows of the PS evaluation:
+    ``cache_r`` [R, planes, L, N], ``const_r`` [R, nh+1, N], ``mask_r``
+    [R, N] the rows' own, ``low_c``/``fbq_c``/``fbb_c`` their bundles'
+    operands, one for every ``cpb`` rows (bundle-aligned rows when cpb > 1).
+    Every tensor lies on ``bfv``'s device."""
+    q = bfv.levels[lvl]
+    rbase = bfv.levels[result_level]
+    size, planes, N = cache_r.shape[0], cache_r.shape[1], cache_r.shape[-1]
+    nseg = planes // ph
+    # plane k·ph + i == [k, i] of a [nseg, ph] plane view (strided, no copy)
+    cache5 = cache_r[:, : nseg * ph].reshape((size, nseg, ph) + tuple(cache_r.shape[2:]))
+    acc = ps_inner(low_c, cache5, q, cpb)[:, : nh + 1]
+    inner = q.from_mont(q.ntt.intt(acc))             # coeff plain
+    dm = bfv._scale_impl(const_r, lvl)                # [R, nh+1, L, N]
+    inner[..., 0, :, :] = add_mod(inner[..., 0, :, :], dm, q.p_d)
+
+    # lazy BEHZ: the lhs's q-NTT form is the inner accumulator itself
+    # (adding NTT(mont(dm)) to component 0), the rhs is pre-transformed
+    dm_ntt = q.ntt.ntt(q.to_mont(dm[:, 1:]))
+    fa_q = acc[:, 1:].clone()
+    fa_q[:, :, 0] = add_mod(acc[:, 1:, 0], dm_ntt, q.p_d)
+    if cpb == 1:
+        tot = bfv.multiply_sum_fused(fa_q, inner[:, 1:], fbq_c, fbb_c, lvl, nh)
+    else:
+        # per-bundle rhs broadcasts against bundle-blocked lhs rows
+        nb = size // cpb
+        blk = lambda x: x.reshape((nb, cpb) + tuple(x.shape[1:]))
+        tot = bfv.multiply_sum_fused(
+            blk(fa_q), blk(inner[:, 1:]), fbq_c[:, None], fbb_c[:, None], lvl, nh,
+        ).reshape((size, 3, q.k, N))
+    tot[:, :2] = add_mod(tot[:, :2], inner[:, 0], q.p_d)
+    rel = bfv.relinearize(Ciphertext(tot, is_ntt=False, level=lvl), _rk_on(rk, bfv))
+    sw = bfv.mod_switch_to(rel, result_level).data    # [R, 2, Lr, N]
+    dm2 = bfv._scale_impl(bfv.encode(mask_r), result_level)
+    sw[:, 0] = add_mod(sw[:, 0], dm2, rbase.p_d)
+    return sw
+
+
+def ps_eval_rows(bfv, r0, r1, C, row_chunk, aligned, low_b, fbq, fbb, cache_rows,
+                 const_rows, mask_rows, rk, lvl, result_level, nh, ph) -> torch.Tensor:
+    """Result ciphertexts [r1 - r0, 2, Lr, N] of the global (bundle × cache)
+    rows [r0, r1) of the PS evaluation, on ``bfv``'s device.  ``cache_rows``,
+    ``const_rows`` and ``mask_rows`` hold exactly those rows (row 0 is global
+    row r0); ``low_b``/``fbq``/``fbb`` are every bundle's operands.  The rows
+    go in chunks of the global grid of ``row_chunk`` rows (``_row_chunk``):
+    a chunk of whole bundles broadcasts its bundles' operands when
+    ``aligned``, any other gathers them row by row.  ``eval_matching_polys_ps``
+    calls this on all rows, ``parallel.runtime.ShardedEvaluator`` on each
+    shard's; chunking and sharding change no bit."""
+    out = []
+    for g0 in range(r0 - r0 % row_chunk, r1, row_chunk):
+        a, b = max(g0, r0), min(g0 + row_chunk, r1)
+        loc = slice(a - r0, b - r0)
+        if aligned and a % C == 0 and (b - a) % C == 0:
+            b0, b1 = a // C, b // C
+            low_c, fbq_c, fbb_c, cpb = low_b[b0:b1], fbq[b0:b1], fbb[b0:b1], C
+        else:
+            bo = torch.div(torch.arange(a, b, device=low_b.device), C, rounding_mode="floor")
+            low_c, fbq_c, fbb_c, cpb = low_b[bo], fbq[bo], fbb[bo], 1
+        out.append(_ps_rows(bfv, cache_rows[loc], const_rows[loc], mask_rows[loc], low_c,
+                            fbq_c, fbb_c, cpb, rk, lvl, result_level, nh, ph))
+    return out[0] if len(out) == 1 else torch.cat(out)
+
+
 def eval_matching_polys_ps(
     bfv: BfvContext,
     low_powers_ntt: torch.Tensor,    # [B, ℓ, 2, L, N] NTT mont: x^1..x^ℓ
@@ -302,71 +452,19 @@ def eval_matching_polys_ps(
     (bundle, cache), one relinearization, mod-switch and mask.  Returns the
     result ciphertexts [B, C, 2, L_result, N] at ``result_level``."""
     lvl = eval_level or bfv.q.k
-    q = bfv.levels[lvl]
-    ph = ps_low_degree + 1
     B, C, planes = coeff_cache.shape[0], coeff_cache.shape[1], coeff_cache.shape[2]
-    K = max_degree
-    nh = K // ph
     N = coeff_cache.shape[-1]
-    ell = low_powers_ntt.shape[1]
-    assert ell == ps_low_degree
-    assert planes >= nh * ph + ell + 1, (
-        f"coefficient cache has {planes} planes; PS gather needs {nh * ph + ell + 1}"
-    )
+    nh, ph = ps_dims(low_powers_ntt, planes, ps_low_degree, max_degree)
     rows = B * C
-    row_chunk, aligned = _row_chunk(bfv, lvl, nh, ell, B, C, planes, N)
-    rbase = bfv.levels[result_level]
-    rk = RelinKey(relin_key.ksk, relin_key.level)
+    row_chunk, aligned = _row_chunk(bfv, lvl, nh, ps_low_degree, B, C, planes, N)
 
     # the high powers are per-bundle constants: transform them once per query
     fbq, fbb = bfv.premul_sum_rhs(Ciphertext(high_powers_coeff, is_ntt=False, level=lvl), nh)
+    data = ps_eval_rows(
+        bfv, 0, rows, C, row_chunk, aligned, low_powers_ntt.contiguous(), fbq, fbb,
+        coeff_cache.reshape((rows,) + tuple(coeff_cache.shape[2:])),
+        const_polys.reshape((rows,) + tuple(const_polys.shape[2:])),
+        mask_slots.reshape(rows, N), relin_key, lvl, result_level, nh, ph)
+    rbase = bfv.levels[result_level]
+    return Ciphertext(data.reshape(B, C, 2, rbase.k, N), is_ntt=False, level=result_level)
 
-    cache_rows = coeff_cache.reshape((rows,) + tuple(coeff_cache.shape[2:]))
-    const_rows = const_polys.reshape((rows,) + tuple(const_polys.shape[2:]))
-    mask_rows = mask_slots.reshape(rows, N)
-    low_b = low_powers_ntt.contiguous()
-    nseg = planes // ph
-
-    def rows_impl(r0, size, low_c, fbq_c, fbb_c, cpb):
-        cache_r = cache_rows[r0: r0 + size]
-        # plane k·ph + i == [k, i] of a [nseg, ph] plane view (strided, no copy)
-        cache5 = cache_r[:, : nseg * ph].reshape((size, nseg, ph) + tuple(cache_r.shape[2:]))
-        acc = ps_inner(low_c, cache5, q, cpb)[:, : nh + 1]
-        inner = q.from_mont(q.ntt.intt(acc))             # coeff plain
-        dm = bfv._scale_impl(const_rows[r0: r0 + size], lvl)  # [R, nh+1, L, N]
-        inner[..., 0, :, :] = add_mod(inner[..., 0, :, :], dm, q.p_d)
-
-        # lazy BEHZ: the lhs's q-NTT form is the inner accumulator itself
-        # (adding NTT(mont(dm)) to component 0), the rhs is pre-transformed
-        dm_ntt = q.ntt.ntt(q.to_mont(dm[:, 1:]))
-        fa_q = acc[:, 1:].clone()
-        fa_q[:, :, 0] = add_mod(acc[:, 1:, 0], dm_ntt, q.p_d)
-        if cpb == 1:
-            tot = bfv.multiply_sum_fused(fa_q, inner[:, 1:], fbq_c, fbb_c, lvl, nh)
-        else:
-            # per-bundle rhs broadcasts against bundle-blocked lhs rows
-            nb = size // cpb
-            blk = lambda x: x.reshape((nb, cpb) + tuple(x.shape[1:]))
-            tot = bfv.multiply_sum_fused(
-                blk(fa_q), blk(inner[:, 1:]), fbq_c[:, None], fbb_c[:, None], lvl, nh,
-            ).reshape((size, 3, q.k, N))
-        tot[:, :2] = add_mod(tot[:, :2], inner[:, 0], q.p_d)
-        rel = bfv.relinearize(Ciphertext(tot, is_ntt=False, level=lvl), rk)
-        sw = bfv.mod_switch_to(rel, result_level).data   # [R, 2, Lr, N]
-        dm2 = bfv._scale_impl(bfv.encode(mask_rows[r0: r0 + size]), result_level)
-        sw[:, 0] = add_mod(sw[:, 0], dm2, rbase.p_d)
-        return sw
-
-    out = []
-    for r0 in range(0, rows, row_chunk):
-        size = min(rows, r0 + row_chunk) - r0
-        if aligned:
-            b0, nb = r0 // C, size // C
-            out.append(rows_impl(r0, size, low_b[b0: b0 + nb], fbq[b0: b0 + nb],
-                                 fbb[b0: b0 + nb], C))
-        else:
-            bo = torch.div(torch.arange(r0, r0 + size, device=low_b.device), C,
-                           rounding_mode="floor")
-            out.append(rows_impl(r0, size, low_b[bo], fbq[bo], fbb[bo], 1))
-    data = torch.cat(out).reshape(B, C, 2, rbase.k, N)
-    return Ciphertext(data, is_ntt=False, level=result_level)

@@ -154,3 +154,14 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(name: str, entry, device, *args) -> None:
+    """Call the C entry point ``entry`` with ``args`` and the current stream
+    of ``device``, with ``device`` made the current CUDA device meanwhile (a
+    launch goes to the current device, whichever device its pointers lie
+    on), and raise if it reports an error."""
+    import torch
+
+    with torch.cuda.device(device):
+        check(entry(*args, stream_ptr(device)), name)

@@ -115,12 +115,11 @@ def ps_inner_cuda(low, cache5, base: RnsBase, caches_per_bundle: int) -> torch.T
     out = torch.empty((R, nseg, 2, L, N), dtype=I32, device=low.device)
     if out.numel() == 0:
         return out
-    err = _build.lib().apsu_ps_inner(
+    _build.launch(
+        "ps_inner", _build.lib().apsu_ps_inner, low.device,
         low.data_ptr(), cache5.data_ptr(), out.data_ptr(), base.p_u32.data_ptr(),
         base.pni_u32.data_ptr(), cache5.stride(0), R, caches_per_bundle, nseg, ph, L, N,
-        _build.stream_ptr(low.device),
     )
-    _build.check(err, "ps_inner")
     if not torch.cuda.is_current_stream_capturing():   # a captured launch counts at replay
         launches += 1
     return out
@@ -201,11 +200,11 @@ def eval_dot_cuda(powers, cache, base: RnsBase) -> torch.Tensor:
     out = torch.empty((B, C, 2, L, N), dtype=I32, device=powers.device)
     if out.numel() == 0:
         return out
-    err = _build.lib().apsu_eval_dot(
+    _build.launch(
+        "eval_dot", _build.lib().apsu_eval_dot, powers.device,
         powers.data_ptr(), cache.data_ptr(), out.data_ptr(), base.p_u32.data_ptr(),
-        base.pni_u32.data_ptr(), B, C, D, Dp, L, N, _build.stream_ptr(powers.device),
+        base.pni_u32.data_ptr(), B, C, D, Dp, L, N,
     )
-    _build.check(err, "eval_dot")
     if not torch.cuda.is_current_stream_capturing():
         dot_launches += 1
     return out

@@ -74,9 +74,8 @@ def vpu_loop_cuda(x: torch.Tensor, op: str, outer: int = 1) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    err = _build.lib().apsu_vpu_loop(x.data_ptr(), out.data_ptr(), x.numel(), code, P, PNI,
-                                     outer, _build.stream_ptr(x.device))
-    _build.check(err, "vpu_loop")
+    _build.launch("vpu_loop", _build.lib().apsu_vpu_loop, x.device,
+                  x.data_ptr(), out.data_ptr(), x.numel(), code, P, PNI, outer)
     if not torch.cuda.is_current_stream_capturing():   # a captured launch counts at replay
         loop_launches += 1
     return out
@@ -142,9 +141,8 @@ def add_one_cuda(x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tens
         raise ValueError("add_one_cuda needs 16-byte aligned tensors")
     if x.numel() == 0:
         return out
-    err = _build.lib().apsu_add_one(x.data_ptr(), out.data_ptr(), x.numel(),
-                                    _build.stream_ptr(x.device))
-    _build.check(err, "add_one")
+    _build.launch("add_one", _build.lib().apsu_add_one, x.device,
+                  x.data_ptr(), out.data_ptr(), x.numel())
     if not torch.cuda.is_current_stream_capturing():
         add_launches += 1
     return out

@@ -87,13 +87,32 @@ Phases, each printing one JSON object per line:
    fails; the labeled DB refuses ``insert_or_assign``; K3 launched twice a
    query (the matching and the label cache), held against its plain version
    at both calls of the last warm query, and the NTT at its shapes;
-12. with ``--compare-ntt``, each given NTT source (an earlier ``ntt.cu``, or
+12. the sharded receiver (``parallel/runtime.py``), run right after phase 5
+   on phase 4's 16M-4096 DB and right after phase 6 on its 1M-2048-cmp DB
+   (``sharded_path``): ``ShardedReceiver`` on a 1-shard mesh (the one-card
+   deployment) timed in turns with ``Receiver.run_query``, and on a 5-shard
+   mesh on the one card (16M-4096's 24 rows as 5/5/5/5/4; a check of the
+   partition, not a deployment time); every response bit for bit equal to
+   the direct one under the same mask seed and exact by the set's oracle
+   (a control against another mask must fail); the launches of each
+   sharded query, and the kernels against their plain versions at every
+   call of a 5-shard query;
+13. the worker grid at 1M-2048-com through the four CLIs (``grid_path``):
+   four ``worker_cli`` processes on ``--port 0`` (bundles (0,3)/(3,5) ×
+   two cache ranges of the global C), one ``receiver_cli --workers ...
+   --cache-parts 2 --serve 2`` coordinator and one ``sender_cli --peqt
+   osn`` with two query files (KKRT; the second query rebinds every
+   worker); both unions against the set algebra with a control, each
+   worker's build and rebind time, link bytes, peak device memory and its
+   log line that the consumed cache went first, the coordinator's
+   ``dist_*`` split, and the kernels at every call the six processes made;
+14. with ``--compare-ntt``, each given NTT source (an earlier ``ntt.cu``, or
    a variant of it) built alone, checked and timed in turns with
    ``csrc/ntt.cu`` at the two largest NTT shapes (``compare_ntt``); with
    ``--compare-ps-inner``, each given PS inner-sum source likewise, at K2's
    four recorded shapes, with each build's registers, spills and SASS calls
    (``compare_ps_inner``);
-13. the ``kernels`` summary line, then ``{"ok": true, "device": ...}``.
+15. the ``kernels`` summary line, then ``{"ok": true, "device": ...}``.
 
 Any mismatch, build failure or launch failure raises, and the run exits
 non-zero without the ``ok`` line.  Exits non-zero at once when
@@ -154,6 +173,15 @@ LABELED_QUERY = 1536
 LABELED_COMMON = 1024
 ENCRYPT_EVERY = 64
 LABEL_NONCE = bytes(range(16))
+# the sharded receiver: the shards of its two meshes on the one card (1: the
+# one-card deployment; 5: 16M-4096's 24 rows as 5/5/5/5/4, 1M-2048-cmp's 75 as
+# 15 each, a check of the partition); the worker grid: its workers and the
+# cache ranges a bundle range is split into
+SHARDS = (1, 5)
+GRID_WORKERS = 4
+GRID_CACHE_PARTS = 2
+# the card's name and power limit (nvidia-smi), named beside every time
+GPU = ""
 
 
 def emit(obj) -> None:
@@ -524,6 +552,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    global GPU
+    GPU = smi
     import cryptography
 
     cxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, check=True)
@@ -655,6 +685,14 @@ def main() -> int:
         B * C, nseg, ph, q.k, N)
     ps = check_ps_inner(low, cache5, q, "16M-4096 warm query (DB cache)")
 
+    # -- phase 12, first set: the sharded receiver on phase 4's DB -----------
+    t0 = time.perf_counter()
+    shard16 = sharded_path(
+        "16M-4096", params, db, req,
+        lambda resp, mask: (lambda m, w, f: m > 0 and w == 0 and f == 0)(*oracle(resp, mask)),
+        args.seed, gen)
+    emit({"phase_wall_s": {"sharded_16M-4096": time.perf_counter() - t0}})
+
     if args.profile:
         profile_query(recv, req)
     # release the PS path's 4 GB cache before the next path (the recorded
@@ -662,8 +700,8 @@ def main() -> int:
     del recv, req, db, cache5, low, runs, resp, calls
     torch.cuda.empty_cache()
 
-    # -- phase 6: the in-process PSU at 1M-2048-cmp ----------------------------
-    psu = psu_path(args, gen, "1M-2048-cmp")
+    # -- phase 6: the in-process PSU at 1M-2048-cmp (and phase 12 on its DB) --
+    psu = psu_path(args, gen, "1M-2048-cmp", sharded=True)
     torch.cuda.empty_cache()
 
     # -- phase 7: the in-process PSU at 1M-2048-com (PS, 29-bit eval primes) --
@@ -686,7 +724,13 @@ def main() -> int:
     # -- phase 11: labeled mode at 1M-1-32 -------------------------------------
     t1 = time.perf_counter()
     lab = labeled_path(args, gen)
-    emit({"phase_wall_s": {"db_lifecycle": t1 - t0, "labeled": time.perf_counter() - t1}})
+    torch.cuda.empty_cache()
+
+    # -- phase 13: the 2 x 2 worker grid through the four CLIs at 1M-2048-com --
+    t2 = time.perf_counter()
+    grid = grid_path(args, gen)
+    emit({"phase_wall_s": {"db_lifecycle": t1 - t0, "labeled": t2 - t1,
+                           "worker_grid": time.perf_counter() - t2}})
     if args.compare_ntt:
         torch.cuda.empty_cache()
         compare_ntt(args.compare_ntt, gen)
@@ -716,18 +760,23 @@ def main() -> int:
                      "apsu_tpu/ops/ntt_pallas.py:118 (N=2048/4096)",
          "launches": launches["ntt"] + psu["launches"]["ntt"] + psu_ps["launches"]["ntt"]
          + mpc["launches"]["ntt"] + cli["launches"]["ntt"] + life["launches"]["ntt"]
-         + lab["launches"]["ntt"],
+         + lab["launches"]["ntt"] + shard16["launches"]["ntt"]
+         + psu["sharded"]["launches"]["ntt"] + grid["launches"]["ntt"],
          "launches_by_path": {"ps_16M-4096": launches["ntt"],
                               "psu_1M-2048-cmp": psu["launches"]["ntt"],
                               "psu_1M-2048-com": psu_ps["launches"]["ntt"],
                               "psu_mpc_1M-2048-cmp": mpc["launches"]["ntt"],
                               "cli_1M-2048-com": cli["launches"]["ntt"],
                               "db_lifecycle_1M-2048-com": life["launches"]["ntt"],
-                              "labeled_1M-1-32": lab["launches"]["ntt"]},
+                              "labeled_1M-1-32": lab["launches"]["ntt"],
+                              "sharded_16M-4096": shard16["launches"]["ntt"],
+                              "sharded_1M-2048-cmp": psu["sharded"]["launches"]["ntt"],
+                              "grid_1M-2048-com": grid["launches"]["ntt"]},
          "max_abs_err": max(ntt_ps["max_abs_err"], psu["ntt"]["max_abs_err"],
                             psu_ps["ntt"]["max_abs_err"], mpc["ntt"]["max_abs_err"],
                             cli["ntt"]["max_abs_err"], life["ntt"]["max_abs_err"],
-                            lab["ntt"]["max_abs_err"]),
+                            lab["ntt"]["max_abs_err"], shard16["ntt"]["max_abs_err"],
+                            psu["sharded"]["ntt"]["max_abs_err"], grid["ntt"]["max_abs_err"]),
          "tolerance": TOLERANCE,
          "ms": ntt_ps["largest_ms"], "plain_ms": ntt_ps["largest_plain_ms"],
          "bound_ms": ntt_ps["largest_bound_ms"], "bound_by": ntt_ps["largest_bound_by"],
@@ -742,17 +791,25 @@ def main() -> int:
          "psu_mpc_1M-2048-cmp": ntt_summary(mpc["ntt"]),
          "cli_1M-2048-com": ntt_summary(cli["ntt"], ntt_keys + ("distinct_shapes",)),
          "db_lifecycle_1M-2048-com": ntt_summary(life["ntt"], ntt_keys + ("distinct_shapes",)),
-         "labeled_1M-1-32": ntt_summary(lab["ntt"])},
+         "labeled_1M-1-32": ntt_summary(lab["ntt"]),
+         "sharded_16M-4096": ntt_summary(shard16["ntt"], ntt_keys + ("distinct_shapes",)),
+         "sharded_1M-2048-cmp": ntt_summary(psu["sharded"]["ntt"],
+                                            ntt_keys + ("distinct_shapes",)),
+         "grid_1M-2048-com": ntt_summary(grid["ntt"], ntt_keys + ("distinct_shapes",))},
         {"name": "ps_inner", "route": "cuda", "source": "apsu_tpu_torch/csrc/ps_inner.cu",
          "replaces": "apsu_tpu/ops/polyeval.py:434",
          "launches": launches["ps_inner"] + psu_ps["launches"]["ps_inner"]
-         + cli["launches"]["ps_inner"] + life["launches"]["ps_inner"],
+         + cli["launches"]["ps_inner"] + life["launches"]["ps_inner"]
+         + shard16["launches"]["ps_inner"] + grid["launches"]["ps_inner"],
          "launches_by_path": {"ps_16M-4096": launches["ps_inner"],
                               "psu_1M-2048-com": psu_ps["launches"]["ps_inner"],
                               "cli_1M-2048-com": cli["launches"]["ps_inner"],
-                              "db_lifecycle_1M-2048-com": life["launches"]["ps_inner"]},
+                              "db_lifecycle_1M-2048-com": life["launches"]["ps_inner"],
+                              "sharded_16M-4096": shard16["launches"]["ps_inner"],
+                              "grid_1M-2048-com": grid["launches"]["ps_inner"]},
          "max_abs_err": max(d["max_abs_err"] for d in [ps, psu_ps["ps_inner"]] + ps_checks
-                            + cli["ps_inner"] + life["ps_inner"]),
+                            + cli["ps_inner"] + life["ps_inner"] + shard16["ps_inner"]
+                            + grid["ps_inner"]),
          "tolerance": TOLERANCE,
          "ms": ps["ms"], "plain_ms": ps["plain_ms"],
          "bound_ms": ps["bound_ms"], "bound_by": ps["bound_by"],
@@ -761,16 +818,18 @@ def main() -> int:
          "other_cases": [{**{k: d[k] for k in ps_keys},
                           **ceiling_keys(ps_work(d["low"], d["cache5"]), "mul_wide")}
                          for d in [psu_ps["ps_inner"]] + ps_checks + cli["ps_inner"]
-                         + life["ps_inner"]]},
+                         + life["ps_inner"] + shard16["ps_inner"] + grid["ps_inner"]]},
         {"name": "eval_dot", "route": "cuda", "source": "apsu_tpu_torch/csrc/eval_dot.cu",
          "replaces": "apsu_tpu/ops/polyeval.py:484",
          "launches": psu["launches"]["eval_dot"] + mpc["launches"]["eval_dot"]
-         + lab["launches"]["eval_dot"],
+         + lab["launches"]["eval_dot"] + psu["sharded"]["launches"]["eval_dot"],
          "launches_by_path": {"psu_1M-2048-cmp": psu["launches"]["eval_dot"],
                               "psu_mpc_1M-2048-cmp": mpc["launches"]["eval_dot"],
-                              "labeled_1M-1-32": lab["launches"]["eval_dot"]},
+                              "labeled_1M-1-32": lab["launches"]["eval_dot"],
+                              "sharded_1M-2048-cmp": psu["sharded"]["launches"]["eval_dot"]},
          "max_abs_err": max([psu["eval_dot"]["max_abs_err"], mpc["eval_dot"]["max_abs_err"]]
-                            + [d["max_abs_err"] for d in dot_checks + lab["eval_dot"]]),
+                            + [d["max_abs_err"] for d in dot_checks + lab["eval_dot"]
+                               + psu["sharded"]["eval_dot"]]),
          "tolerance": TOLERANCE,
          "ms": psu["eval_dot"]["ms"], "plain_ms": psu["eval_dot"]["plain_ms"],
          "bound_ms": psu["eval_dot"]["bound_ms"], "bound_by": psu["eval_dot"]["bound_by"],
@@ -781,7 +840,8 @@ def main() -> int:
          "other_cases": [{**{k: d[k] for k in ("case", "powers", "cache", "primes_bits", "ms",
                                                "plain_ms", "bound_ms")},
                           **ceiling_keys(dot_work(d["powers"], d["cache"]), "mul_wide")}
-                         for d in dot_checks + [mpc["eval_dot"]] + lab["eval_dot"]],
+                         for d in dot_checks + [mpc["eval_dot"]] + lab["eval_dot"]
+                         + psu["sharded"]["eval_dot"]],
          "labeled_launches_per_query": lab["launches_per_query"]["eval_dot"]},
         *ceil["kernels"],
     ]
@@ -1195,9 +1255,11 @@ def compare_ps_inner(sources, gen) -> None:
         torch.cuda.empty_cache()
 
 
-def psu_path(args, gen, name: str) -> dict:
+def psu_path(args, gen, name: str, sharded: bool = False) -> dict:
     """run_psu at ``name`` at full width, then warm queries: phase 6 on the
-    non-PS 1M-2048-cmp (kernel K3), phase 7 on the PS 1M-2048-com (K2)."""
+    non-PS 1M-2048-cmp (kernel K3), phase 7 on the PS 1M-2048-com (K2).
+    With ``sharded``, phase 12 (``sharded_path``) on the same DB and request
+    follows."""
     from apsu_tpu_torch.api.parties import Receiver, Sender, _slots_to_item_blocks
     from apsu_tpu_torch.api.protocol import DebugEndgame, run_psu
     from apsu_tpu_torch.core.params import PSUParams
@@ -1310,8 +1372,14 @@ def psu_path(args, gen, name: str) -> dict:
         evals = check_eval_dot(powers, cache, base, f"{name} warm query (DB cache)")
     if args.profile:
         profile_query(recv, req)
-    return {"launches": launches, "ntt": ntt_summary, kernel: evals,
-            "launches_per_query": {k: v / (WARM + 1) for k, v in query_launches.items()}}
+    out = {"launches": launches, "ntt": ntt_summary, kernel: evals,
+           "launches_per_query": {k: v / (WARM + 1) for k, v in query_launches.items()}}
+    if sharded:
+        t0 = time.perf_counter()
+        out["sharded"] = sharded_path(name, params, db, req,
+                                      lambda resp, mask: endgame(resp, mask)[0], args.seed, gen)
+        emit({"phase_wall_s": {f"sharded_{name}": time.perf_counter() - t0}})
+    return out
 
 
 class _Records(logging.Handler):
@@ -1469,12 +1537,6 @@ def cli_path(args, gen) -> dict:
         union = set((tmp / "union.csv").read_text().split())
         recorded = [json.loads((tmp / f).read_text())
                     for f in ("receiver_calls.json", "sender_calls.json")]
-
-    def logged(pattern, text):
-        found = re.findall(pattern, text)
-        if not found:
-            raise AssertionError(f"no log line matches {pattern!r}")
-        return found[-1]
 
     want = set(db) | set(queries[0]) | set(queries[1])
     new = int(logged(r"\(2 queries, received (\d+) new\)", recv_log))
@@ -1839,7 +1901,253 @@ def labeled_path(args, gen) -> dict:
             "launches_per_query": {k: v / (WARM + 1) for k, v in launches.items()}}
 
 
+def logged(pattern, text):
+    """The last match of ``pattern`` in a process's log ``text``."""
+    found = re.findall(pattern, text)
+    if not found:
+        raise AssertionError(f"no log line matches {pattern!r}")
+    return found[-1]
+
+
+def sharded_path(name, params, db, req, exact, seed, gen) -> dict:
+    """Phase 12 at one set: ``ShardedReceiver`` over a mesh of SHARDS[0]
+    shard (the one-card deployment) and of SHARDS[1] shards on the one card,
+    against ``Receiver.run_query`` on the same DB and request.  Each sharded
+    query draws its mask from the seed of a direct one and must give the
+    direct response bit for bit and pass the set's oracle ``exact(resp,
+    mask)``; a response read against another query's mask must fail it.  The
+    direct and the 1-shard queries run in turns (direct, sharded, sharded,
+    direct, ...), timed; each sharded query's launches are counted from 0,
+    and every kernel call of the second 5-shard query is held against its
+    plain version.  The 5-shard mesh runs its row ranges one after another
+    on one card: its time is a check of the partition, not a deployment's."""
+    from apsu_tpu_torch.api.parties import Receiver
+    from apsu_tpu_torch.ops import ntt as ntt_op
+    from apsu_tpu_torch.ops import polyeval
+    from apsu_tpu_torch.parallel.mesh import make_mesh
+    from apsu_tpu_torch.parallel.runtime import ShardedReceiver
+
+    meshes = {n: make_mesh(devices=[db.device] * n) for n in SHARDS}
+    rows = int(db.coeff_cache.shape[0] * db.coeff_cache.shape[1])
+    calls = kernel_calls()
+    launches = {n: [] for n in SHARDS}
+
+    def query(n, s, record=False):
+        rng = np.random.default_rng(s)
+        recv = (Receiver(params, db, rng=rng) if n is None
+                else ShardedReceiver(params, db, meshes[n], rng=rng))
+        ntt_op.launches = polyeval.launches = polyeval.dot_launches = 0
+        with recording_kernels(calls, on=record):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resp = recv.run_query(req)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if n is not None:
+            launches[n].append({"ntt": ntt_op.launches, "ps_inner": polyeval.launches,
+                                "eval_dot": polyeval.dot_launches})
+        return resp, recv.last_mask, wall
+
+    times = {"direct": [], SHARDS[0]: [], SHARDS[1]: []}
+    identical, oracles, masks = [], [], []
+    for i in range(WARM + 1):
+        s = seed + 100 + i
+        got = {}
+        for who in ((None, SHARDS[0]) if i % 2 == 0 else (SHARDS[0], None)):
+            got[who] = query(who, s)
+        runs = [(SHARDS[0], got[SHARDS[0]])]
+        if i < 2:
+            runs.append((SHARDS[1], query(SHARDS[1], s, record=i == 1)))
+        want, want_mask, t_direct = got[None]
+        times["direct"].append(t_direct)
+        masks.append(want_mask)
+        for n, (resp, mask, wall) in runs:
+            times[n].append(wall)
+            identical.append(resp.eval_level == want.eval_level and np.array_equal(mask, want_mask)
+                             and torch.equal(resp.results, want.results))
+            oracles.append(exact(resp, mask))
+    control = exact(got[SHARDS[0]][0], masks[0])   # the last response, the first mask
+    best = {k: min(v[1:] if len(v) > 1 else v) for k, v in times.items()}
+    res = {"sharded_path": name, "gpu": GPU, "shards": list(SHARDS),
+           "rows": rows, "row_ranges": {n: meshes[n].row_ranges(rows) for n in SHARDS},
+           "direct_warm_s": times["direct"], f"sharded_{SHARDS[0]}dev_warm_s": times[SHARDS[0]],
+           f"sharded_{SHARDS[1]}shard_s": times[SHARDS[1]],
+           "direct_best_s": best["direct"], f"sharded_{SHARDS[0]}dev_best_s": best[SHARDS[0]],
+           f"sharded_{SHARDS[0]}dev_overhead_pct":
+               (best[SHARDS[0]] - best["direct"]) / best["direct"] * 100,
+           "note": f"the {SHARDS[1]}-shard mesh runs its ranges in turn on one card: a check of "
+                   "the partition, not a deployment time",
+           "bit_identical": identical, "oracle_exact": oracles, "control_other_mask": control,
+           "launches_per_query": launches}
+    emit(res)
+    if not all(identical):
+        raise AssertionError(f"a sharded response differs from the direct one ({name})")
+    if not all(oracles) or control:
+        raise AssertionError(f"the sharded oracle failed, or its control passed ({name})")
+    ps = db.ps_const_polys is not None
+    kernel, other = ("ps_inner", "eval_dot") if ps else ("eval_dot", "ps_inner")
+    for n in SHARDS:   # at least one launch of the evaluation's kernel a non-empty shard
+        busy = sum(r1 > r0 for r0, r1 in meshes[n].row_ranges(rows))
+        for c in launches[n]:
+            if c["ntt"] == 0 or c[kernel] < busy or c[other]:
+                raise AssertionError(f"{n}-shard launches are wrong ({name}): {c}")
+
+    out = {"launches": {k: sum(c[k] for n in SHARDS for c in launches[n])
+                        for k in ("ntt", "ps_inner", "eval_dot")},
+           "ntt": check_ntt_shapes(calls["ntt"], gen), kernel: []}
+    emit({"sharded_ntt": out["ntt"], "path": name, "shards": SHARDS[1]})
+    label = f"{name} {SHARDS[1]}-shard query (DB cache rows)"
+    for first, cache, base in calls[kernel]:
+        x = rand_residues(first, base.primes, gen)
+        out[kernel].append(check_ps_inner(x, cache, base, label) if ps
+                           else check_eval_dot(x, cache, base, label))
+    return out
+
+
+def grid_path(args, gen) -> dict:
+    """Phase 13: the DB party as a GRID_WORKERS-worker grid through the four
+    CLIs at 1M-2048-com on the card: ``worker_cli`` processes on ``--port 0``
+    (each logs the port it bound), bundles split in two and caches in
+    ``GRID_CACHE_PARTS`` ranges of the global C, one ``receiver_cli
+    --workers ... --cache-parts`` coordinator serving two queries and one
+    ``sender_cli --peqt osn`` with two query files (KKRT, the second through
+    OP_REBIND, which every worker rebinds to).  Each union.csv against the
+    set algebra of the CSVs, with a control (a query never sent must not be
+    in it); each worker's build and rebind time, peak device memory, link
+    bytes and its debug line that the consumed cache went before the rebind
+    built the next; the coordinator's ``dist_*`` split.  Every process runs
+    under ``cli_child``, and the kernels are held against their plain
+    versions at every recorded call."""
+    name = "1M-2048-com"
+    rng = np.random.default_rng(args.seed + 13)
+    db = [f"db-item-{i}" for i in range(DB_ITEMS)]
+    picks = rng.choice(DB_ITEMS, size=2 * COMMON_ITEMS, replace=False)
+    queries = [[f"grid{k}-item-{i}" for i in range(QUERY_ITEMS - COMMON_ITEMS)]
+               + [db[j] for j in picks[k * COMMON_ITEMS:(k + 1) * COMMON_ITEMS]]
+               for k in range(2)]
+    unsent = "grid2-item-0"
+    params_file = str(ROOT / "parameters" / f"{name}.json")
+    procs = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli-", dir=ROOT) as tmp:
+        tmp = Path(tmp)
+        for fname, rows in [("db.csv", db), ("query0.csv", queries[0]),
+                            ("query1.csv", queries[1])]:
+            (tmp / fname).write_text("".join(r + "\n" for r in rows))
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        common = ["--params", params_file, "--bind", "127.0.0.1", "--log-level", "debug",
+                  "--device", CLI_DEVICE]
+
+        def spawn(module, record, *argv):
+            p = subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--cli-child", str(tmp / record),
+                 f"apsu_tpu_torch.cli.{module}", *argv],
+                cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+            lines = []
+            reader = threading.Thread(target=lambda: lines.extend(p.stderr), daemon=True)
+            reader.start()
+            procs.append((p, lines, reader))
+            return p, lines
+
+        def wait_log(pattern, p, lines, t0):
+            while True:
+                found = re.search(pattern, "".join(lines))
+                if found:
+                    return found
+                if p.poll() is not None or time.perf_counter() - t0 > CLI_TIMEOUT:
+                    raise RuntimeError(f"no {pattern!r} in the log:\n" + "".join(lines)[-3000:])
+                time.sleep(0.2)
+
+        t0 = time.perf_counter()
+        try:
+            workers = [spawn("worker_cli", f"worker{i}_calls.json", *common, "--port", "0")
+                       for i in range(GRID_WORKERS)]
+            ports = [int(wait_log(r"worker listening on 127\.0\.0\.1:(\d+)", p, lines, t0)[1])
+                     for p, lines in workers]
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = str(s.getsockname()[1])
+            recv, recv_lines = spawn(
+                "receiver_cli", "receiver_calls.json", *common, "--db-file",
+                str(tmp / "db.csv"), "--out", str(tmp / "union.csv"), "--serve", "2",
+                "--seed", str(args.seed + 1), "--port", port,
+                "--workers", ",".join(f"127.0.0.1:{q}" for q in ports),
+                "--cache-parts", str(GRID_CACHE_PARTS))
+            wait_log(r"listening on 127\.0\.0\.1:" + port, recv, recv_lines, t0)
+            send, send_lines = spawn(
+                "sender_cli", "sender_calls.json", "--query-file", str(tmp / "query0.csv"),
+                str(tmp / "query1.csv"), "--host", "127.0.0.1", "--port", port, "--peqt", "osn",
+                "--seed", str(args.seed + 2), "--log-level", "debug", "--device", CLI_DEVICE)
+            rcs = [p.wait(timeout=CLI_TIMEOUT) for p, _, _ in procs]
+        finally:
+            for p, _, _ in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for _, _, reader in procs:
+            reader.join(30)
+        logs = ["".join(lines) for _, lines, _ in procs]
+        if any(rcs):
+            raise RuntimeError(f"the grid's CLIs failed: rcs {rcs}\n"
+                               + "\n".join(log[-2000:] for log in logs))
+        union = set((tmp / "union.csv").read_text().split())
+        recorded = [json.loads((tmp / f).read_text()) for f in
+                    [f"worker{i}_calls.json" for i in range(GRID_WORKERS)]
+                    + ["receiver_calls.json", "sender_calls.json"]]
+
+    wlogs, recv_log = logs[:GRID_WORKERS], logs[GRID_WORKERS]
+    want = set(db) | set(queries[0]) | set(queries[1])
+    fresh = 2 * (QUERY_ITEMS - COMMON_ITEMS)
+    new = int(logged(r"\(2 queries, received (\d+) new\)", recv_log))
+    timings = ast.literal_eval(logged(r"timings: (\{.*\})", recv_log))
+    launches_by = [json.loads(logged(r"kernel launches: (\{.*\})", log)) for log in logs]
+    launches = {k: sum(x[k] for x in launches_by) for k in launches_by[0]}
+    rebind_mem = [dict(zip(("before", "after_release", "after_rebind", "cache"), map(float, logged(
+        r"worker rebind: device memory allocated ([\d.]+) GB before, ([\d.]+) GB after "
+        r"releasing the consumed cache, ([\d.]+) GB after the rebind \(cache ([\d.]+) GB\)",
+        log)))) for log in wlogs]
+    res = {"grid_path": name, "gpu": GPU, "processes": [
+               f"{GRID_WORKERS} x worker_cli --port 0",
+               f"receiver_cli --serve 2 --cache-parts {GRID_CACHE_PARTS} --workers ...",
+               "sender_cli --peqt osn (2 query files)"],
+           "worker_ports": ports, "db_items": len(db),
+           "query_items": [len(q) for q in queries], "common_items_each": COMMON_ITEMS,
+           "wall_s": wall, "union": len(union), "expected_union": len(want),
+           "union_exact": union == want, "control_unsent_in_union": unsent in union,
+           "received_new": new, "expected_new": fresh,
+           "worker_build_s": timings.get("worker_build_s"),
+           "worker_rebind_s": timings.get("worker_rebind_s"),
+           "dist_s": {k: timings.get(k) for k in ("dist_scatter_s", "dist_wait_s",
+                                                  "dist_concat_s")},
+           "coordinator_timings": timings,
+           "link_bytes": [[int(x) for x in logged(
+               r"worker done \(sent (\d+) bytes, received (\d+)\)", log)] for log in wlogs],
+           "worker_peak_mem_gb": [float(logged(r"peak device memory: ([\d.]+) GB", log))
+                                  for log in wlogs],
+           "worker_rebind_mem_gb": rebind_mem,
+           "launches_by_process": launches_by,
+           "ot_flavors_coordinator": ot_flavors(recv_log.splitlines())}
+    emit(res)
+    if union != want or new != fresh:
+        raise AssertionError("the grid's union.csv is not the union of the CSVs")
+    if unsent in union:
+        raise AssertionError("the control (a query item never sent) is in the union")
+    if "rebind" not in timings or len(timings.get("worker_rebind_s") or []) != GRID_WORKERS:
+        raise AssertionError("the second query did not rebind every worker")
+    for m in rebind_mem:
+        if m["before"] - m["after_release"] < m["cache"] - 1e-3:
+            raise AssertionError(f"a worker's rebind did not free the consumed cache first: {m}")
+    if any(x["ps_inner"] == 0 for x in launches_by[:GRID_WORKERS]) or launches["eval_dot"]:
+        raise AssertionError(f"the grid's launches are wrong: {launches_by}")
+    counted = {k: sum(len(rec[k]) for rec in recorded) for k in launches}
+    if counted != launches:
+        raise AssertionError(f"recorded calls {counted} != logged launches {launches}")
+    checks = replay_calls(recorded, gen, f"{name} worker grid")
+    emit({"grid_ntt": checks["ntt"], "path": name})
+    return {"launches": launches, **checks}
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--cli-child"]:   # phase 9's processes (cli_path)
+    if sys.argv[1:2] == ["--cli-child"]:   # the CLI processes of phases 9 and 13
         sys.exit(cli_child(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit(main())

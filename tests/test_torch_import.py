@@ -31,6 +31,8 @@ def test_import_leaves_jax_and_reference_out():
         "apsu_tpu_torch.tools.ntt4p_gl_ab", "apsu_tpu_torch.cli.pd_tool",
         "apsu_tpu_torch.engine.probe", "apsu_tpu_torch.engine.interpolate",
         "apsu_tpu_torch.db.receiver_db", "apsu_tpu_torch.hash.items",
+        "apsu_tpu_torch.parallel.mesh", "apsu_tpu_torch.parallel.runtime",
+        "apsu_tpu_torch.parallel.multihost", "apsu_tpu_torch.cli.worker_cli",
         *(f"apsu_tpu_torch.mpc.{m}" for m in (
             "baseot", "duplex", "ec", "endgame", "kkrt", "oprf", "osn", "osn_peqt",
             "otext", "peqt", "prg", "silent", "softspoken")),

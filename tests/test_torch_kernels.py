@@ -14,6 +14,7 @@ from apsu_tpu_torch.core.nt import gen_ntt_primes
 from apsu_tpu_torch.core.ntt import NttContext
 from apsu_tpu_torch.core.params import PSUParams
 from apsu_tpu_torch.core.rns import RnsBase
+from apsu_tpu_torch.device import canonical
 from apsu_tpu_torch.ops import ntt as ntt_op
 from apsu_tpu_torch.ops import polyeval, roofline
 
@@ -238,6 +239,81 @@ def test_graph_ms_counts_replayed_launches():
     roofline.add_launches = 0
     graph_ms(lambda: roofline.add_one_cuda(x), reps=7)
     assert roofline.add_launches == 2 + 2 * 7   # two eager calls, two replays of 7
+
+
+SHARD_SETS = {  # tests/test_sharded.py's PS and power-DAG sets
+    "ps": {"table_params": {"hash_func_count": 3, "table_size": 96, "max_items_per_bin": 28},
+           "item_params": {"felts_per_item": 4},
+           "query_params": {"ps_low_degree": 4, "query_powers": [1, 2, 3, 4, 5, 10, 25]},
+           "seal_params": {"plain_modulus": 65537, "poly_modulus_degree": 256,
+                           "coeff_modulus_bits": [48, 48, 48, 48, 48, 30]}},
+    "dag": {"table_params": {"hash_func_count": 2, "table_size": 128, "max_items_per_bin": 16},
+            "item_params": {"felts_per_item": 4},
+            "query_params": {"ps_low_degree": 0, "query_powers": [1, 2, 5, 8, 11, 14, 15, 16]},
+            "seal_params": {"plain_modulus": 65537, "poly_modulus_degree": 256,
+                            "coeff_modulus_bits": [48, 48, 48, 28]}},
+}
+
+
+def _sharded_against_direct(name, devices):
+    """The direct query on cuda:0 and ``ShardedReceiver`` over ``devices``
+    (None: every visible card) on one DB and request under one mask seed.
+    Returns (direct response, sharded receiver, sharded response, launches of
+    the evaluation's kernel during the sharded query)."""
+    from apsu_tpu_torch.api.parties import Receiver, Sender
+    from apsu_tpu_torch.db.receiver_db import ReceiverDB
+    from apsu_tpu_torch.mpc.oprf import DebugOprf
+    from apsu_tpu_torch.mpc.prg import CsRng
+    from apsu_tpu_torch.parallel.mesh import make_mesh
+    from apsu_tpu_torch.parallel.runtime import ShardedReceiver
+
+    params = PSUParams.from_dict(SHARD_SETS[name])
+    rng = np.random.default_rng(6)
+    db_items = rng.integers(0, 1 << 64, size=(800, 2), dtype=np.uint64)
+    query = np.concatenate([db_items[:15], rng.integers(0, 1 << 64, size=(21, 2), dtype=np.uint64)])
+    db = ReceiverDB(params, DebugOprf(), device="cuda")
+    db.set_data(db_items)
+    req = Sender(params, DebugOprf(), rng=np.random.default_rng(1), device="cuda").create_query(query)
+    want = Receiver(params, db, rng=CsRng(b"sharded-card-receiver-k1")).run_query(req)
+    shard = ShardedReceiver(params, db, make_mesh(devices=devices),
+                            rng=CsRng(b"sharded-card-receiver-k1"))
+    counter = "launches" if name == "ps" else "dot_launches"
+    before = getattr(polyeval, counter)
+    got = shard.run_query(req)
+    torch.cuda.synchronize()
+    return want, shard, got, getattr(polyeval, counter) - before
+
+
+@pytest.mark.cuda
+def test_sharded_receiver_on_one_card_matches_direct():
+    """A 3-shard mesh on cuda:0 (tests/test_sharded.py's PS set) answers bit
+    for bit as the direct query, each shard's rows through one launch of the
+    PS inner-sum kernel."""
+    _need_cuda()
+    want, shard, got, launched = _sharded_against_direct("ps", ["cuda:0"] * 3)
+    assert [r1 - r0 for r0, r1 in shard.evaluator.ranges] == [2, 1, 1]
+    assert launched == 3
+    assert got.results.is_cuda and torch.equal(got.results, want.results)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ps", "dag"])
+def test_sharded_receiver_across_cards_matches_direct(name):
+    """Every visible card a shard (two or more): each shard's cache rows are
+    copied to its card once and run there with a context of that card,
+    every kernel launched on the card its tensors lie on; the response,
+    gathered on cuda:0, equals the direct query's bit for bit."""
+    _need_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    want, shard, got, launched = _sharded_against_direct(name, None)
+    busy = [(ctx, cache) for (ctx, cache, _), (r0, r1) in
+            zip(shard.evaluator.shards, shard.evaluator.ranges) if r1 > r0]
+    assert len({cache.device for _, cache in busy}) == len(busy) > 1
+    assert all(canonical(ctx.device) == cache.device for ctx, cache in busy)
+    assert launched >= len(busy)
+    assert got.results.device == want.results.device
+    assert torch.equal(got.results, want.results)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

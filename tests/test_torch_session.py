@@ -548,10 +548,11 @@ def test_cli_flags_of_later_slices_and_devices_fail(tmp_path, capsys):
 
     (tmp_path / "params.json").write_text(json.dumps(SMALL))
     base = ["--params", str(tmp_path / "params.json"), "--db-file", "db.csv"]
-    for extra in (["--workers", "127.0.0.1:1"], ["--cache-parts", "2"]):
+    for extra, msg in ((["--workers", "127.0.0.1:1", "--clients", "2"], "incompatible"),
+                       (["--cache-parts", "2"], "needs --workers")):
         with pytest.raises(SystemExit):
             receiver_cli.main(base + extra)
-        assert "parallel slice" in capsys.readouterr().err
+        assert msg in capsys.readouterr().err
     import torch
 
     if not torch.cuda.is_available():
@@ -559,5 +560,5 @@ def test_cli_flags_of_later_slices_and_devices_fail(tmp_path, capsys):
             receiver_cli.main(base + ["--device", "cuda"])
         with pytest.raises(RuntimeError, match="cuda"):
             sender_cli.main(["--query-file", "q.csv", "--device", "cuda"])
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        p_session.serve_db_party(None, PORT["params"], None, workers=[object()])
+    with pytest.raises(ValueError, match="workers"):
+        p_session.serve_db_party(None, PORT["params"], None, cache_parts=2)
