@@ -134,8 +134,11 @@ def lib() -> ctypes.CDLL:
         L.apsu_ps_inner.restype = i32
         L.apsu_ps_inner_plan.argtypes = [i32, i32, i32, i32, i32, i32, vp]
         L.apsu_ps_inner_plan.restype = i32
-        L.apsu_eval_dot.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
-        L.apsu_eval_dot.restype = i32
+        L.apsu_eval_dot_split.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
+                                          vp, vp]
+        L.apsu_eval_dot_split.restype = i32
+        L.apsu_eval_dot_clusters.argtypes = [i32, i32, i32, i32, i32, i32, vp, vp]
+        L.apsu_eval_dot_clusters.restype = i32
         u32 = ctypes.c_uint32
         L.apsu_vpu_loop.argtypes = [vp, vp, i64, i32, u32, u32, i32, vp]
         L.apsu_vpu_loop.restype = i32

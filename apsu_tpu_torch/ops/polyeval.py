@@ -24,10 +24,14 @@ evaluation):
 
     out[b, c] = Σ_{j=1..D} powers[b, j-1] ⊙_mont cache[b, c, j]
 
-It too is bound by the bytes of the cache, which streams through once; each
-thread reuses its two power residues across a block of caches.  It takes
-every prime < 2^30 (the TPU kernel needs < 2^28), folding its u64 sums before
-they can wrap.
+It too is bound by the bytes of the cache and the powers, each streamed
+through once by bulk asynchronous copies.  A block owns a lane tile of one
+bundle and limb, a chunk of its caches (their sums in registers) and one
+range of the plane axis; the ranges of a tile are the blocks of one cluster,
+which add their canonical partial sums through distributed shared memory.
+``eval_dot_plan`` picks the split and the ring from the shape, so the B=1
+shapes fill the card too.  It takes every prime < 2^30 (the TPU kernel needs
+< 2^28), folding its u64 sums before they can wrap.
 
 ``ps_inner`` and ``eval_dot`` launch their kernels for CUDA tensors and run
 the plain versions for CPU tensors; both are bit-identical to the reference.
@@ -35,7 +39,9 @@ the plain versions for CPU tensors; both are bit-identical to the reference.
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING
+import ctypes
+import functools
+from typing import TYPE_CHECKING, NamedTuple
 
 import torch
 
@@ -184,6 +190,109 @@ def eval_dot(powers, cache, base: RnsBase) -> torch.Tensor:
     return eval_dot_cuda(powers, cache, base)
 
 
+# K3's launch plan (csrc/eval_dot.cu checks each field it reads)
+DOT_TILES = (128, 64)    # lanes a block, the larger preferred
+DOT_MAX_CACHES = 16      # caches a block sums in registers
+DOT_MAX_SPLIT = 8        # plane ranges a lane tile: the blocks of one portable cluster
+DOT_MAX_STAGES = 16
+# a 128-lane block's ring stage holds whole planes up to about DOT_STAGE_BYTES
+# and its ring up to about DOT_RING_BYTES, but at least DOT_MIN_STAGES stages;
+# a smaller tile takes the same planes and stages
+DOT_STAGE_BYTES = 8192
+DOT_RING_BYTES = 24576
+DOT_MIN_STAGES = 3
+DOT_LOAD_PER_SM = 3      # 128-lane blocks' worth of lanes an SM the plan aims at
+DOT_FOLD_EVERY = 8       # products a u64 sum takes between folds
+DOT_BARRIER_BYTES = 2 * DOT_MAX_STAGES * 8
+SMEM_PER_BLOCK = 232448  # the H100's most dynamic shared memory a block
+H100_SMS = 132
+
+
+class DotPlan(NamedTuple):
+    """How K3 cuts one call: blocks of (lane tile, limb, bundle x cache chunk
+    x plane range), the plane ranges of a tile forming one cluster."""
+    tile: int            # lanes a block
+    cache_chunks: int    # blocks along a bundle's caches
+    caches: int          # caches a block (the last chunk may hold fewer)
+    split: int           # plane ranges a tile (cluster size)
+    planes: int          # planes a range (the last may hold fewer)
+    stage_planes: int    # planes a ring stage
+    stages: int          # ring stages
+    smem_bytes: int      # dynamic shared memory a block
+    fold_every: int      # products between folds of a u64 sum
+    grid: tuple          # (lane tiles, L, B * cache_chunks * split)
+    cluster: tuple       # (1, 1, split)
+
+    def kernel_fields(self) -> tuple:
+        """The fields ``apsu_eval_dot_split`` reads, in its order."""
+        return self[:8]
+
+
+def _dot_plan(B: int, C: int, D: int, L: int, N: int, split: int, tile: int) -> DotPlan:
+    """The plan with ``tile`` lanes a block and at most ``split`` plane
+    ranges a tile."""
+    chunks = -(-C // DOT_MAX_CACHES)
+    caches = -(-C // chunks)
+    chunks = -(-C // caches)
+    split = max(1, min(split, DOT_MAX_SPLIT, D))
+    planes = max(1, -(-D // split))
+    split = max(1, -(-D // planes))
+    slice_set = (2 + caches) * DOT_TILES[0] * 4   # bytes of one plane of a 128-lane block
+    stage_planes = max(1, min(planes, DOT_STAGE_BYTES // slice_set))
+    ring_stages = DOT_RING_BYTES // (stage_planes * slice_set)
+    stages = min(-(-planes // stage_planes),
+                 max(DOT_MIN_STAGES, min(DOT_MAX_STAGES, ring_stages)))
+    ring_bytes = stages * stage_planes * (2 + caches) * tile * 4
+    partial_bytes = 2 * caches * tile * 4   # the range's sums, left in the ring at the end
+    return DotPlan(tile, chunks, caches, split, planes, stage_planes, stages,
+                   DOT_BARRIER_BYTES + max(ring_bytes, partial_bytes), DOT_FOLD_EVERY,
+                   (-(-N // tile), L, B * chunks * split), (1, 1, split))
+
+
+def eval_dot_plan(B: int, C: int, D: int, L: int, N: int, sms: int = H100_SMS,
+                  resident=None) -> DotPlan:
+    """K3's launch plan for powers [B, D, 2, L, N] and C caches a bundle on a
+    card of ``sms`` SMs; ``resident(plan)``, where given, is how many of the
+    plan's clusters the card holds at once (``card_dot_plan`` asks the card).
+
+    Every block streams at about one rate, so the plan wants all its
+    clusters resident at once (a cluster left over runs as a second wave)
+    and about DOT_LOAD_PER_SM 128-lane blocks' worth of lanes an SM:
+    fewer leave the card's memory idle, more crowd it.  Among the lane tiles
+    and plane splits it takes the plan whose clusters fit, nearest that
+    load, then with its blocks spread most evenly over the SMs
+    (ceil(n / sms) / (n / sms) least), then the larger tile and the fewer
+    blocks.  (Fitted to K3's five path shapes on the H100, with
+    chip_smoke.py --compare-eval-dot timing the pick.)"""
+    def cost(plan):
+        n = plan.grid[0] * plan.grid[1] * plan.grid[2]
+        fits = resident is None or n // plan.split <= resident(plan)
+        load = n * plan.tile / DOT_TILES[0]
+        return (not fits, abs(load - DOT_LOAD_PER_SM * sms), -(-n // sms) / (n / sms),
+                -plan.tile, n)
+
+    return min((_dot_plan(B, C, D, L, N, split, tile)
+                for tile in DOT_TILES for split in range(1, DOT_MAX_SPLIT + 1)), key=cost)
+
+
+@functools.lru_cache(maxsize=256)
+def card_dot_plan(index: int, B: int, C: int, D: int, L: int, N: int) -> DotPlan:
+    """``eval_dot_plan`` for CUDA device ``index``, with its SM count and its
+    cluster occupancy at each candidate (``apsu_eval_dot_clusters``)."""
+    props = torch.cuda.get_device_properties(index)
+
+    def resident(plan):
+        n = ctypes.c_int(0)
+        fields = (ctypes.c_int * 8)(*plan.kernel_fields())
+        with torch.cuda.device(index):
+            _build.check(_build.lib().apsu_eval_dot_clusters(B, C, D, D + 1, L, N, fields,
+                                                             ctypes.byref(n)),
+                         "eval_dot occupancy")
+        return n.value
+
+    return eval_dot_plan(B, C, D, L, N, props.multi_processor_count, resident if D else None)
+
+
 def eval_dot_cuda(powers, cache, base: RnsBase) -> torch.Tensor:
     global dot_launches
     _check_dot(powers, cache, base)
@@ -195,15 +304,21 @@ def eval_dot_cuda(powers, cache, base: RnsBase) -> torch.Tensor:
         raise ValueError("eval_dot_cuda needs contiguous tensors")
     B, D, _, L, N = powers.shape
     C, Dp = cache.shape[1], cache.shape[2]
-    if max(B, C, Dp, L, N) >= 1 << 31 or -(-C // 4) >= 1 << 16:
+    # the kernel's bulk copies move 16-byte aligned runs of a lane tile
+    if N % 4 or powers.data_ptr() % 16 or cache.data_ptr() % 16:
+        raise ValueError("eval_dot_cuda needs N % 4 == 0 and 16-byte aligned tensors")
+    if max(B, C, Dp, L, N) >= 1 << 31:
         raise ValueError("eval_dot_cuda shape too large")
     out = torch.empty((B, C, 2, L, N), dtype=I32, device=powers.device)
     if out.numel() == 0:
         return out
+    plan = card_dot_plan(powers.device.index, B, C, D, L, N)
+    if plan.grid[1] > 65535 or plan.grid[2] > 65535:
+        raise ValueError("eval_dot_cuda shape too large")
     _build.launch(
-        "eval_dot", _build.lib().apsu_eval_dot, powers.device,
+        "eval_dot", _build.lib().apsu_eval_dot_split, powers.device,
         powers.data_ptr(), cache.data_ptr(), out.data_ptr(), base.p_u32.data_ptr(),
-        base.pni_u32.data_ptr(), B, C, D, Dp, L, N,
+        base.pni_u32.data_ptr(), B, C, D, Dp, L, N, (ctypes.c_int * 8)(*plan.kernel_fields()),
     )
     if not torch.cuda.is_current_stream_capturing():
         dot_launches += 1

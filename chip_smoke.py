@@ -2,7 +2,7 @@
 """Drive the apsu_tpu_torch port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--seed S] [--profile] [--compare-ntt SRC ...]
-                          [--compare-ps-inner SRC ...]
+                          [--compare-ps-inner SRC ...] [--compare-eval-dot SRC ...]
 
 Phases, each printing one JSON object per line:
 
@@ -13,8 +13,10 @@ Phases, each printing one JSON object per line:
    and plain-modulus bases of 16M-4096 at N=8192 plus a 30-bit prime at
    N=4096; PS inner sums: one eval chunk of the 4-bundle x 6-cache cache,
    the 1M-4096-com eval shape on its 30-bit primes, and ph=311 on 256M-1's
-   eval primes; the dot product: the 1M-2048-cmp shape, 30-bit primes, and
-   520 planes);
+   eval primes; the dot product at its ``DOT_CASES``: the 1M-2048-cmp warm
+   query's shape on its primes and on 30-bit primes, the labeled 1M-1-32
+   shape, a 5-shard 1M-2048-cmp shard, 520 planes on 30-bit primes, and
+   the 1M-256-288 warm query's shape);
 3. the ceilings: the ceiling probe (``vpu_loop``, K9) and the per-call floor
    (``add_one``, K10) against their plain versions, bit for bit; then the
    port's two measuring tools (``apsu_tpu_torch.tools.vpu_roofline``: the
@@ -106,13 +108,20 @@ Phases, each printing one JSON object per line:
    worker's build and rebind time, link bytes, peak device memory and its
    log line that the consumed cache went first, the coordinator's
    ``dist_*`` split, and the kernels at every call the six processes made;
-14. with ``--compare-ntt``, each given NTT source (an earlier ``ntt.cu``, or
+14. the in-process PSU at full width on 1M-256-288 (non-PS, N=4096, K=512:
+   the dot product over 520 planes): 2^20 receiver items, a 256-item
+   ``Sender`` query of which 128 items are in the DB, ``run_psu`` and the
+   warm queries checked as in phase 6, K3 held against its plain version at
+   the shape the warm query launched it with;
+15. with ``--compare-ntt``, each given NTT source (an earlier ``ntt.cu``, or
    a variant of it) built alone, checked and timed in turns with
    ``csrc/ntt.cu`` at the two largest NTT shapes (``compare_ntt``); with
    ``--compare-ps-inner``, each given PS inner-sum source likewise, at K2's
    four recorded shapes, with each build's registers, spills and SASS calls
-   (``compare_ps_inner``);
-15. the ``kernels`` summary line, then ``{"ok": true, "device": ...}``.
+   (``compare_ps_inner``); with ``--compare-eval-dot``, each given
+   dot-product source likewise, at ``DOT_CASES``, each launch on inputs
+   out of L2 (``compare_eval_dot``);
+16. the ``kernels`` summary line, then ``{"ok": true, "device": ...}``.
 
 Any mismatch, build failure or launch failure raises, and the run exits
 non-zero without the ``ok`` line.  Exits non-zero at once when
@@ -180,6 +189,11 @@ LABEL_NONCE = bytes(range(16))
 SHARDS = (1, 5)
 GRID_WORKERS = 4
 GRID_CACHE_PARTS = 2
+# the 256-item sender of APSI's 1M-256 sets against the 2^20-item DB: its set
+# (non-PS, K=512: K3 at 520 planes), its items and those in the DB
+SMALL_QUERY_SET = "1M-256-288"
+SMALL_QUERY = 256
+SMALL_COMMON = 128
 # the card's name and power limit (nvidia-smi), named beside every time
 GPU = ""
 
@@ -525,6 +539,9 @@ def main() -> int:
     ap.add_argument("--compare-ps-inner", nargs="+", type=Path, default=[], metavar="SRC",
                     help="other ps_inner.cu sources to check and time in turns with "
                          "csrc/ps_inner.cu")
+    ap.add_argument("--compare-eval-dot", nargs="+", type=Path, default=[], metavar="SRC",
+                    help="other eval_dot.cu sources to check and time in turns with "
+                         "csrc/eval_dot.cu")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -731,12 +748,22 @@ def main() -> int:
     grid = grid_path(args, gen)
     emit({"phase_wall_s": {"db_lifecycle": t1 - t0, "labeled": t2 - t1,
                            "worker_grid": time.perf_counter() - t2}})
+    torch.cuda.empty_cache()
+
+    # -- phase 14: the in-process PSU at 1M-256-288 (K3 at 520 planes) -------
+    t3 = time.perf_counter()
+    psu256 = psu_path(args, gen, SMALL_QUERY_SET, query_items=SMALL_QUERY,
+                      common_items=SMALL_COMMON)
+    emit({"phase_wall_s": {f"psu_{SMALL_QUERY_SET}": time.perf_counter() - t3}})
     if args.compare_ntt:
         torch.cuda.empty_cache()
         compare_ntt(args.compare_ntt, gen)
     if args.compare_ps_inner:
         torch.cuda.empty_cache()
         compare_ps_inner(args.compare_ps_inner, gen)
+    if args.compare_eval_dot:
+        torch.cuda.empty_cache()
+        compare_eval_dot(args.compare_eval_dot, gen, ceil["ceilings"])
 
     ntt_keys = ("largest_shape", "largest_inverse", "largest_ms", "largest_plain_ms",
                 "largest_bound_ms", "largest_bound_by", "device_ms_per_query",
@@ -761,7 +788,8 @@ def main() -> int:
          "launches": launches["ntt"] + psu["launches"]["ntt"] + psu_ps["launches"]["ntt"]
          + mpc["launches"]["ntt"] + cli["launches"]["ntt"] + life["launches"]["ntt"]
          + lab["launches"]["ntt"] + shard16["launches"]["ntt"]
-         + psu["sharded"]["launches"]["ntt"] + grid["launches"]["ntt"],
+         + psu["sharded"]["launches"]["ntt"] + grid["launches"]["ntt"]
+         + psu256["launches"]["ntt"],
          "launches_by_path": {"ps_16M-4096": launches["ntt"],
                               "psu_1M-2048-cmp": psu["launches"]["ntt"],
                               "psu_1M-2048-com": psu_ps["launches"]["ntt"],
@@ -771,12 +799,14 @@ def main() -> int:
                               "labeled_1M-1-32": lab["launches"]["ntt"],
                               "sharded_16M-4096": shard16["launches"]["ntt"],
                               "sharded_1M-2048-cmp": psu["sharded"]["launches"]["ntt"],
-                              "grid_1M-2048-com": grid["launches"]["ntt"]},
+                              "grid_1M-2048-com": grid["launches"]["ntt"],
+                              f"psu_{SMALL_QUERY_SET}": psu256["launches"]["ntt"]},
          "max_abs_err": max(ntt_ps["max_abs_err"], psu["ntt"]["max_abs_err"],
                             psu_ps["ntt"]["max_abs_err"], mpc["ntt"]["max_abs_err"],
                             cli["ntt"]["max_abs_err"], life["ntt"]["max_abs_err"],
                             lab["ntt"]["max_abs_err"], shard16["ntt"]["max_abs_err"],
-                            psu["sharded"]["ntt"]["max_abs_err"], grid["ntt"]["max_abs_err"]),
+                            psu["sharded"]["ntt"]["max_abs_err"], grid["ntt"]["max_abs_err"],
+                            psu256["ntt"]["max_abs_err"]),
          "tolerance": TOLERANCE,
          "ms": ntt_ps["largest_ms"], "plain_ms": ntt_ps["largest_plain_ms"],
          "bound_ms": ntt_ps["largest_bound_ms"], "bound_by": ntt_ps["largest_bound_by"],
@@ -795,7 +825,8 @@ def main() -> int:
          "sharded_16M-4096": ntt_summary(shard16["ntt"], ntt_keys + ("distinct_shapes",)),
          "sharded_1M-2048-cmp": ntt_summary(psu["sharded"]["ntt"],
                                             ntt_keys + ("distinct_shapes",)),
-         "grid_1M-2048-com": ntt_summary(grid["ntt"], ntt_keys + ("distinct_shapes",))},
+         "grid_1M-2048-com": ntt_summary(grid["ntt"], ntt_keys + ("distinct_shapes",)),
+         f"psu_{SMALL_QUERY_SET}": ntt_summary(psu256["ntt"])},
         {"name": "ps_inner", "route": "cuda", "source": "apsu_tpu_torch/csrc/ps_inner.cu",
          "replaces": "apsu_tpu/ops/polyeval.py:434",
          "launches": launches["ps_inner"] + psu_ps["launches"]["ps_inner"]
@@ -822,12 +853,15 @@ def main() -> int:
         {"name": "eval_dot", "route": "cuda", "source": "apsu_tpu_torch/csrc/eval_dot.cu",
          "replaces": "apsu_tpu/ops/polyeval.py:484",
          "launches": psu["launches"]["eval_dot"] + mpc["launches"]["eval_dot"]
-         + lab["launches"]["eval_dot"] + psu["sharded"]["launches"]["eval_dot"],
+         + lab["launches"]["eval_dot"] + psu["sharded"]["launches"]["eval_dot"]
+         + psu256["launches"]["eval_dot"],
          "launches_by_path": {"psu_1M-2048-cmp": psu["launches"]["eval_dot"],
                               "psu_mpc_1M-2048-cmp": mpc["launches"]["eval_dot"],
                               "labeled_1M-1-32": lab["launches"]["eval_dot"],
-                              "sharded_1M-2048-cmp": psu["sharded"]["launches"]["eval_dot"]},
-         "max_abs_err": max([psu["eval_dot"]["max_abs_err"], mpc["eval_dot"]["max_abs_err"]]
+                              "sharded_1M-2048-cmp": psu["sharded"]["launches"]["eval_dot"],
+                              f"psu_{SMALL_QUERY_SET}": psu256["launches"]["eval_dot"]},
+         "max_abs_err": max([psu["eval_dot"]["max_abs_err"], mpc["eval_dot"]["max_abs_err"],
+                             psu256["eval_dot"]["max_abs_err"]]
                             + [d["max_abs_err"] for d in dot_checks + lab["eval_dot"]
                                + psu["sharded"]["eval_dot"]]),
          "tolerance": TOLERANCE,
@@ -841,7 +875,7 @@ def main() -> int:
                                                "plain_ms", "bound_ms")},
                           **ceiling_keys(dot_work(d["powers"], d["cache"]), "mul_wide")}
                          for d in dot_checks + [mpc["eval_dot"]] + lab["eval_dot"]
-                         + psu["sharded"]["eval_dot"]],
+                         + psu["sharded"]["eval_dot"] + [psu256["eval_dot"]]],
          "labeled_launches_per_query": lab["launches_per_query"]["eval_dot"]},
         *ceil["kernels"],
     ]
@@ -851,29 +885,44 @@ def main() -> int:
     return 0
 
 
-def check_dot_cases(gen):
-    """The dot-product kernel against its plain version at the 1M-2048-cmp
-    evaluation shape (B=5, D=72, C=15, Dp=80, its two eval primes), at the
-    same shape on two 30-bit primes, and at Dp=520 (1M-256-288's plane
-    count) on 30-bit primes."""
+# K3's shapes: (set, level, bundles, caches a bundle, powers, planes); a set
+# of None takes two 30-bit primes at N=4096
+DOT_CASES = {
+    "1M-2048-cmp": ("1M-2048-cmp", "eval", 5, 15, 72, 80),           # phase 6's warm query
+    "1M-2048-cmp, 30-bit primes": (None, None, 5, 15, 72, 80),
+    "1M-1-32 labeled": ("1M-1-32", "labeled", 1, 5, 228, 232),      # phase 11, twice a query
+    "1M-2048-cmp 5-shard shard": ("1M-2048-cmp", "eval", 1, 15, 72, 80),   # phase 12
+    "Dp=520, 30-bit primes": (None, None, 1, 3, 519, 520),
+    "1M-256-288": ("1M-256-288", "eval", 1, 10, 512, 520),          # phase 14
+}
+
+
+def dot_case(name, gen):
+    """Random powers and cache at one of ``DOT_CASES`` on that set's
+    evaluation base (or the labeled one): (label, powers, cache, base)."""
     from apsu_tpu_torch.core.nt import gen_ntt_primes
     from apsu_tpu_torch.core.params import PSUParams
     from apsu_tpu_torch.core.rns import RnsBase
     from apsu_tpu_torch.db.receiver_db import ReceiverDB
 
-    params = PSUParams.load_file(str(ROOT / "parameters" / "1M-2048-cmp.json"))
-    db = ReceiverDB(params, device="cuda")
-    eval_base = db.bfv.levels[db.eval_level()]
-    N = params.poly_degree
-    wide = RnsBase(gen_ntt_primes([30, 30], 2 * N), N, "cuda")
+    pset, level, B, C, D, Dp = DOT_CASES[name]
+    if pset is None:
+        base = RnsBase(gen_ntt_primes([30, 30], 2 * 4096), 4096, "cuda")
+    else:
+        db = ReceiverDB(PSUParams.load_file(str(ROOT / "parameters" / f"{pset}.json")),
+                        device="cuda")
+        base = db.bfv.levels[db.labeled_eval_level() if level == "labeled" else db.eval_level()]
+    powers = rand_residues((B, D, 2, base.k, base.n), base.primes, gen)
+    cache = rand_residues((B, C, Dp, base.k, base.n), base.primes, gen)
+    return name, powers, cache, base
+
+
+def check_dot_cases(gen):
+    """The dot-product kernel against its plain version at every shape of
+    ``DOT_CASES``."""
     out = []
-    for label, base, B, C, D, Dp in [
-        ("1M-2048-cmp eval shape", eval_base, 5, 15, 72, 80),
-        ("30-bit primes", wide, 5, 15, 72, 80),
-        ("Dp=520, 30-bit primes", wide, 1, 3, 519, 520),
-    ]:
-        powers = rand_residues((B, D, 2, base.k, N), base.primes, gen)
-        cache = rand_residues((B, C, Dp, base.k, N), base.primes, gen)
+    for name in DOT_CASES:
+        label, powers, cache, base = dot_case(name, gen)
         out.append(check_eval_dot(powers, cache, base, label))
         del powers, cache
     return out
@@ -1255,11 +1304,95 @@ def compare_ps_inner(sources, gen) -> None:
         torch.cuda.empty_cache()
 
 
-def psu_path(args, gen, name: str, sharded: bool = False) -> dict:
-    """run_psu at ``name`` at full width, then warm queries: phase 6 on the
-    non-PS 1M-2048-cmp (kernel K3), phase 7 on the PS 1M-2048-com (K2).
-    With ``sharded``, phase 12 (``sharded_path``) on the same DB and request
-    follows."""
+def compare_eval_dot(sources, gen, ceilings) -> None:
+    """Each given dot-product source (an earlier commit's ``eval_dot.cu``, with
+    its C entry ``apsu_eval_dot``, or a variant of this one, with
+    ``apsu_eval_dot_split`` and the plan), built alone, against
+    ``eval_dot_plain`` at K3's shapes (``DOT_CASES``), then timed in turns
+    (A, B, ..., B, A) with the package's kernel.  Each launch of a timing
+    reads its own copy of the inputs, the copies together at least three
+    times the 50 MB L2, so every launch finds them in device memory as a
+    query does.  Each build also reports its registers, spills and the CALL
+    instructions in its kernels' SASS (a 64-bit division compiles to a
+    call)."""
+    import ctypes
+
+    from apsu_tpu_torch.ops import _build, polyeval
+    from apsu_tpu_torch.tools import graph_ms
+
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+
+    def launcher(so, name):
+        split = hasattr(so, "apsu_eval_dot_split")
+        entry = so.apsu_eval_dot_split if split else so.apsu_eval_dot
+        entry.argtypes = [vp] * 5 + [i32] * 6 + ([vp, vp] if split else [vp])
+        entry.restype = i32
+
+        def run(powers, cache, base, out):
+            B, D, _, L, N = powers.shape
+            C, Dp = cache.shape[1], cache.shape[2]
+            args = [powers.data_ptr(), cache.data_ptr(), out.data_ptr(), base.p_u32.data_ptr(),
+                    base.pni_u32.data_ptr(), B, C, D, Dp, L, N]
+            if split:
+                plan = polyeval.card_dot_plan(powers.device.index, B, C, D, L, N)
+                args.append((ctypes.c_int * 8)(*plan.kernel_fields()))
+            _build.check(entry(*args, _build.stream_ptr(powers.device)), f"eval_dot ({name})")
+        return run
+
+    own = "csrc/eval_dot.cu"
+    builds = {own: launcher(_build.lib(), own)}
+    for src, lib, log in build_alone([_build.CSRC / "eval_dot.cu", *sources], "eval_dot"):
+        calls = sum(len(re.findall(r"^\s+/\*[0-9a-f]{4}\*/\s+CALL", f, re.M))
+                    for f in sass_functions(lib, "eval_dot_kernel"))
+        name = own if src == _build.CSRC / "eval_dot.cu" else str(src)
+        emit({"compare_eval_dot_build": name, **ptxas_stats(log), "sass_calls": calls})
+        if name != own:
+            builds[name] = launcher(ctypes.CDLL(str(lib)), name)
+
+    for case in DOT_CASES:
+        label, powers, cache, base = dot_case(case, gen)
+        want = polyeval.eval_dot_plain(powers, cache, base)
+        out = torch.empty_like(want)
+        for name, run in builds.items():
+            out.zero_()
+            run(powers, cache, base, out)
+            if not torch.equal(out, want):
+                raise AssertionError(f"dot product {name} != plain at {label}")
+        del want
+        nbytes = (powers.numel() + cache.numel()) * 4
+        copies = [(powers, cache)] + [(powers.clone(), cache.clone())
+                                      for _ in range(-(-150_000_000 // nbytes) - 1)]
+        turn = [0]
+
+        def cold(run):
+            turn[0] += 1
+            pw, ch = copies[turn[0] % len(copies)]
+            run(pw, ch, base, out)
+
+        turns = {name: [] for name in builds}
+        for name in list(builds) + list(builds)[::-1]:
+            turns[name].append(graph_ms(lambda: cold(builds[name])))
+        B, D, _, L, N = powers.shape
+        work = dot_work(tuple(powers.shape), tuple(cache.shape))
+        emit({"compare_eval_dot": label, "powers": list(powers.shape),
+              "cache": list(cache.shape), "input_copies": len(copies),
+              "plan": polyeval.card_dot_plan(powers.device.index, B, cache.shape[1], D, L,
+                                             N)._asdict(),
+              "bound_ms": dot_bound_ms(tuple(powers.shape), tuple(cache.shape))[0],
+              "ceiling_ms": ceiling_ms(work, ceilings, "mul_wide")[0] if ceilings else None,
+              "ms": {name: sum(t) / len(t) for name, t in turns.items()}, "turns_ms": turns})
+        del powers, cache, out, copies
+        torch.cuda.empty_cache()
+
+
+def psu_path(args, gen, name: str, sharded: bool = False, query_items: int = QUERY_ITEMS,
+             common_items: int = COMMON_ITEMS) -> dict:
+    """run_psu at ``name`` at full width, 2^20 receiver items against
+    ``query_items`` sender items of which ``common_items`` are in the DB,
+    then warm queries: phase 6 on the non-PS 1M-2048-cmp (kernel K3), phase
+    7 on the PS 1M-2048-com (K2), phase 14 on the non-PS 1M-256-288 (K3 at
+    520 planes).  With ``sharded``, phase 12 (``sharded_path``) on the same
+    DB and request follows."""
     from apsu_tpu_torch.api.parties import Receiver, Sender, _slots_to_item_blocks
     from apsu_tpu_torch.api.protocol import DebugEndgame, run_psu
     from apsu_tpu_torch.core.params import PSUParams
@@ -1272,7 +1405,7 @@ def psu_path(args, gen, name: str, sharded: bool = False) -> dict:
     ps = params.query_params.ps_low_degree > 0
     kernel, other = ("ps_inner", "eval_dot") if ps else ("eval_dot", "ps_inner")
     rng = np.random.default_rng(args.seed)
-    db_items, query = make_sets(rng, DB_ITEMS, QUERY_ITEMS, COMMON_ITEMS)
+    db_items, query = make_sets(rng, DB_ITEMS, query_items, common_items)
     db_set, q_set = as_set(db_items), as_set(query)
     want = q_set - db_set
     torch.cuda.reset_peak_memory_stats()
@@ -1300,7 +1433,7 @@ def psu_path(args, gen, name: str, sharded: bool = False) -> dict:
     transferred, union = as_set(res.transferred), as_set(res.union)
     psu_ok = transferred == want and union == db_set | q_set and not transferred & db_set
     emit({"psu_path": name, "db_items": len(db_items), "query_items": len(query),
-          "common_items": COMMON_ITEMS, "db_build_s": build_s,
+          "common_items": common_items, "db_build_s": build_s,
           "timings": {**res.timings, "db_build": build_s},
           "stats": {"n_insertions": stats.n_insertions, "n_caches": stats.n_caches,
                     "max_bin_load": stats.max_bin_load},

@@ -177,17 +177,26 @@ def test_ps_inner_cuda_refuses_unaligned_cache():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bits,B,C,D,Dp,fill", [
-    ([28, 27], 2, 15, 72, 80, None),      # the 1M-2048-cmp evaluation shape, cut in N
-    ([28, 27], 1, 3, 72, 80, "p-1"),      # C not a multiple of the cache block
-    ([30, 30], 2, 6, 13, 16, "p-1"),      # the widest primes
-    ([29], 1, 5, 519, 520, None),         # Dp > 256 at 29 bits
-    ([27], 3, 1, 1, 8, None),             # one power
+@pytest.mark.parametrize("bits,B,C,D,Dp,fill,N", [
+    ([28, 27], 2, 15, 72, 80, None, 512),      # the 1M-2048-cmp evaluation shape, cut in N
+    ([28, 27], 1, 3, 72, 80, "p-1", 512),      # C not a multiple of the cache block
+    ([30, 30], 2, 6, 13, 16, "p-1", 512),      # the widest primes
+    ([29], 1, 5, 519, 520, None, 512),         # Dp > 256 at 29 bits
+    ([27], 3, 1, 1, 8, None, 512),             # one power
+    ([28, 27], 5, 15, 72, 80, None, 4096),     # the 1M-2048-cmp shape: 64-lane tiles
+    ([30, 30], 1, 1, 1, 8, "p-1", 4096),       # B=1, C=1, D=1
+    ([30, 30], 1, 15, 1, 8, "p-1", 4096),      # D=1 under 15 caches: partials above a stage
+    ([28, 27], 1, 15, 3, 8, None, 4096),       # one plane a range under 15 caches
+    ([29], 1, 1, 519, 520, "p-1", 1024),       # C=1, D=519: the plane axis split
+    ([28, 27], 2, 37, 20, 24, None, 256),      # more caches than a block sums: 3 chunks
+    ([30], 1, 2, 101, 104, "p-1", 512),        # plane ranges that do not divide D
+    ([28, 27], 3, 4, 13, 16, None, 64),        # N=64, below the lane tile
+    ([27, 26, 25], 1, 3, 40, 48, None, 192),   # a tile and a half of lanes
 ])
-def test_eval_dot_kernel_matches_plain(bits, B, C, D, Dp, fill):
+def test_eval_dot_kernel_matches_plain(bits, B, C, D, Dp, fill, N):
     _need_cuda()
-    primes = gen_ntt_primes(bits, 64)
-    L, N = len(primes), 512
+    primes = gen_ntt_primes(bits, 2 * N)
+    L = len(primes)
     base = RnsBase(primes, N, "cuda")
     powers = _residues((B, D, 2, L, N), primes, "cuda", seed=D, fill=fill)
     cache = _residues((B, C, Dp, L, N), primes, "cuda", seed=Dp + C, fill=fill)
@@ -197,6 +206,32 @@ def test_eval_dot_kernel_matches_plain(bits, B, C, D, Dp, fill):
     cache[:, :, 0] = 7
     cache[:, :, D + 1:] = 11
     assert torch.equal(polyeval.eval_dot_cuda(powers, cache, base), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,D,L,N", [
+    (5, 15, 72, 2, 4096),     # 1M-2048-cmp
+    (1, 5, 228, 4, 8192),     # labeled 1M-1-32
+    (1, 15, 72, 2, 4096),     # a 5-shard 1M-2048-cmp shard
+    (1, 3, 519, 2, 4096),     # 520 planes
+    (1, 10, 512, 3, 4096),    # 1M-256-288
+])
+def test_eval_dot_plan_keeps_its_clusters_resident(B, C, D, L, N):
+    """The card's plan for K3's path shapes: at least two blocks an SM, and
+    every cluster resident at once by the card's own count."""
+    import ctypes
+
+    from apsu_tpu_torch.ops import _build
+
+    _need_cuda()
+    plan = polyeval.card_dot_plan(0, B, C, D, L, N)
+    held = ctypes.c_int(0)
+    fields = (ctypes.c_int * 8)(*plan.kernel_fields())
+    _build.check(_build.lib().apsu_eval_dot_clusters(B, C, D, D + 1, L, N, fields,
+                                                     ctypes.byref(held)), "occupancy")
+    blocks = plan.grid[0] * plan.grid[1] * plan.grid[2]
+    assert blocks >= 2 * torch.cuda.get_device_properties(0).multi_processor_count
+    assert blocks // plan.split <= held.value
 
 
 @pytest.mark.cuda

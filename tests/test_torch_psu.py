@@ -320,3 +320,36 @@ def test_run_psu_matches_reference_1m_2048_cmp():
     assert np.array_equal(want.transferred, got.transferred)
     assert np.array_equal(want.union, got.union)
     check_oracle(db_items, query, got)
+
+
+@pytest.mark.slow
+def test_run_psu_matches_reference_1m_256_288():
+    """run_psu at 1M-256-288's parameters (N=4096, 512 powers: the dot product
+    over 520 planes), the DB cut to 3000 items, a 256-item query (128 in the
+    DB): the port on the CPU (the kernels' plain versions) against the
+    reference with the same seeded parties — one query's response and mask,
+    then run_psu's transferred items and union."""
+    ref_p, port_p = _params("1M-256-288")
+    db_items, query = make_sets(np.random.default_rng(3), n_db=3000, n_query=256, n_common=128)
+    r_db = RefDB(ref_p, RefOprf())
+    r_db.set_data(db_items)
+    db = ReceiverDB(port_p, DebugOprf(), device="cpu")
+    db.set_data(db_items)
+    r_recv = RefReceiver(ref_p, r_db, rng=np.random.default_rng(42))
+    recv = Receiver(port_p, db, rng=np.random.default_rng(42))
+    r_resp = r_recv.run_query(
+        RefSender(ref_p, RefOprf(), rng=np.random.default_rng(41)).create_query(query))
+    resp = recv.run_query(
+        Sender(port_p, DebugOprf(), rng=np.random.default_rng(41), device="cpu").create_query(query))
+    assert resp.results.shape[-4:] == (1, 2, 3, 4096)   # C=1 cache, 3 eval limbs
+    assert np.array_equal(recv.last_mask, r_recv.last_mask)
+    assert _eq(r_resp.results, resp.results)
+    want = ref_run_psu(ref_p, query, db_items,
+                       sender=RefSender(ref_p, RefOprf(), rng=np.random.default_rng(43)),
+                       receiver=RefReceiver(ref_p, r_db, rng=np.random.default_rng(44)))
+    got = run_psu(port_p, query, db_items,
+                  sender=Sender(port_p, DebugOprf(), rng=np.random.default_rng(43), device="cpu"),
+                  receiver=Receiver(port_p, db, rng=np.random.default_rng(44)))
+    assert np.array_equal(want.transferred, got.transferred)
+    assert np.array_equal(want.union, got.union)
+    check_oracle(db_items, query, got)
