@@ -22,6 +22,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
@@ -154,17 +156,33 @@ def check(err: int, name: str) -> None:
 
 
 def stream_ptr(device) -> int:
-    import torch
+    """The raw ``cudaStream_t`` of ``device``'s current stream (the capture
+    stream under graph capture), read without building a ``Stream``."""
+    index = torch.device(device).index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
-    return torch.cuda.current_stream(device).cuda_stream
 
-
-def launch(name: str, entry, device, *args) -> None:
+def launch(name: str, entry, index: int, *args) -> int:
     """Call the C entry point ``entry`` with ``args`` and the current stream
-    of ``device``, with ``device`` made the current CUDA device meanwhile (a
-    launch goes to the current device, whichever device its pointers lie
-    on), and raise if it reports an error."""
-    import torch
-
-    with torch.cuda.device(device):
-        check(entry(*args, stream_ptr(device)), name)
+    of CUDA device ``index`` (a tensor's ``get_device()``), and raise if it
+    reports an error (``cudaGetLastError``).  A launch goes to the current
+    device, whichever device its pointers lie on, so device ``index`` is
+    made current for the call when it is not.  Returns 1, or 0 while the
+    stream is being captured into a CUDA graph: the wrappers add it to their
+    launch counts, and a captured launch counts at each replay
+    (``tools.graph_ms``).  The device, the raw stream and the capture state
+    are read through ``torch._C`` (what ``torch.cuda.current_device``,
+    ``current_stream().cuda_stream`` and ``is_current_stream_capturing``
+    wrap): a ``Stream`` object costs more than the launch itself."""
+    C = torch._C
+    if C._cuda_getDevice() == index:
+        err = entry(*args, C._cuda_getCurrentRawStream(index))
+        captured = C._cuda_isCurrentStreamCapturing()
+    else:
+        with torch.cuda.device(index):
+            err = entry(*args, C._cuda_getCurrentRawStream(index))
+            captured = C._cuda_isCurrentStreamCapturing()
+    if err:
+        check(err, name)
+    return 0 if captured else 1

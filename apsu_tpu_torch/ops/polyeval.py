@@ -121,13 +121,11 @@ def ps_inner_cuda(low, cache5, base: RnsBase, caches_per_bundle: int) -> torch.T
     out = torch.empty((R, nseg, 2, L, N), dtype=I32, device=low.device)
     if out.numel() == 0:
         return out
-    _build.launch(
-        "ps_inner", _build.lib().apsu_ps_inner, low.device,
+    launches += _build.launch(
+        "ps_inner", _build.lib().apsu_ps_inner, low.get_device(),
         low.data_ptr(), cache5.data_ptr(), out.data_ptr(), base.p_u32.data_ptr(),
         base.pni_u32.data_ptr(), cache5.stride(0), R, caches_per_bundle, nseg, ph, L, N,
     )
-    if not torch.cuda.is_current_stream_capturing():   # a captured launch counts at replay
-        launches += 1
     return out
 
 
@@ -315,13 +313,11 @@ def eval_dot_cuda(powers, cache, base: RnsBase) -> torch.Tensor:
     plan = card_dot_plan(powers.device.index, B, C, D, L, N)
     if plan.grid[1] > 65535 or plan.grid[2] > 65535:
         raise ValueError("eval_dot_cuda shape too large")
-    _build.launch(
-        "eval_dot", _build.lib().apsu_eval_dot_split, powers.device,
+    dot_launches += _build.launch(
+        "eval_dot", _build.lib().apsu_eval_dot_split, powers.get_device(),
         powers.data_ptr(), cache.data_ptr(), out.data_ptr(), base.p_u32.data_ptr(),
         base.pni_u32.data_ptr(), B, C, D, Dp, L, N, (ctypes.c_int * 8)(*plan.kernel_fields()),
     )
-    if not torch.cuda.is_current_stream_capturing():
-        dot_launches += 1
     return out
 
 

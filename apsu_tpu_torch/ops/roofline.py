@@ -41,8 +41,6 @@ def _check(x: torch.Tensor, name: str) -> None:
         raise TypeError(f"{name} needs int32 (u32 bits), got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{name} needs a contiguous tensor")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on a CPU or CUDA tensor, got {x.device}")
 
 
 def _op_code(op: str) -> int:
@@ -54,30 +52,28 @@ def _op_code(op: str) -> int:
 def vpu_loop(x: torch.Tensor, op: str, outer: int = 1) -> torch.Tensor:
     """``outer`` chained rounds of ``REPS`` dependent ``op`` steps on every
     element of ``x`` (int32 u32 bits); returns a new tensor of ``x``'s shape."""
+    if not x.is_cpu:
+        return vpu_loop_cuda(x, op, outer)
     _check(x, "vpu_loop")
     _op_code(op)
     if outer < 1:
         raise ValueError("vpu_loop needs outer >= 1")
-    if x.device.type == "cpu":
-        return vpu_loop_plain(x, op, outer)
-    return vpu_loop_cuda(x, op, outer)
+    return vpu_loop_plain(x, op, outer)
 
 
 def vpu_loop_cuda(x: torch.Tensor, op: str, outer: int = 1) -> torch.Tensor:
     global loop_launches
-    _check(x, "vpu_loop_cuda")
-    code = _op_code(op)
     if not x.is_cuda:
         raise ValueError("vpu_loop_cuda needs a CUDA tensor")
+    _check(x, "vpu_loop_cuda")
+    code = _op_code(op)
     if outer < 1 or outer >= 1 << 31:
         raise ValueError("vpu_loop_cuda needs 1 <= outer < 2^31")
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    _build.launch("vpu_loop", _build.lib().apsu_vpu_loop, x.device,
-                  x.data_ptr(), out.data_ptr(), x.numel(), code, P, PNI, outer)
-    if not torch.cuda.is_current_stream_capturing():   # a captured launch counts at replay
-        loop_launches += 1
+    loop_launches += _build.launch("vpu_loop", _build.lib().apsu_vpu_loop, x.get_device(),
+                                   x.data_ptr(), out.data_ptr(), x.numel(), code, P, PNI, outer)
     return out
 
 
@@ -109,14 +105,14 @@ def vpu_loop_plain(x: torch.Tensor, op: str, outer: int = 1) -> torch.Tensor:
 def add_one(x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """``x + 1`` with u32 wraparound (int32 bits), into ``out`` if given (a
     separate tensor of ``x``'s shape, dtype and device) or a new tensor."""
+    if not x.is_cpu:
+        return add_one_cuda(x, out)
     _check(x, "add_one")
-    if x.device.type == "cpu":
-        res = add_one_plain(x)
-        if out is None:
-            return res
-        _check_out(x, out, "add_one")
-        return out.copy_(res)
-    return add_one_cuda(x, out)
+    res = add_one_plain(x)
+    if out is None:
+        return res
+    _check_out(x, out, "add_one")
+    return out.copy_(res)
 
 
 def _check_out(x: torch.Tensor, out: torch.Tensor, name: str) -> None:
@@ -130,21 +126,22 @@ def _check_out(x: torch.Tensor, out: torch.Tensor, name: str) -> None:
 
 
 def add_one_cuda(x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel on a CUDA tensor; a new ``out`` is apart from ``x``, of its
+    shape, and aligned by the allocator, so only a given one is checked."""
     global add_launches
-    _check(x, "add_one_cuda")
     if not x.is_cuda:
         raise ValueError("add_one_cuda needs a CUDA tensor")
+    _check(x, "add_one_cuda")
     if out is None:
         out = torch.empty_like(x)
-    _check_out(x, out, "add_one_cuda")
-    if x.data_ptr() % 16 or out.data_ptr() % 16:
+    else:
+        _check_out(x, out, "add_one_cuda")
+    xp, op, n = x.data_ptr(), out.data_ptr(), x.numel()
+    if xp % 16 or op % 16:
         raise ValueError("add_one_cuda needs 16-byte aligned tensors")
-    if x.numel() == 0:
-        return out
-    _build.launch("add_one", _build.lib().apsu_add_one, x.device,
-                  x.data_ptr(), out.data_ptr(), x.numel())
-    if not torch.cuda.is_current_stream_capturing():
-        add_launches += 1
+    if n:
+        add_launches += _build.launch("add_one", _build.lib().apsu_add_one, x.get_device(),
+                                      xp, op, n)
     return out
 
 

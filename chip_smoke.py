@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed S] [--profile] [--compare-ntt SRC ...]
                           [--compare-ps-inner SRC ...] [--compare-eval-dot SRC ...]
+                          [--compare-roofline SRC ...]
 
 Phases, each printing one JSON object per line:
 
@@ -120,7 +121,16 @@ Phases, each printing one JSON object per line:
    four recorded shapes, with each build's registers, spills and SASS calls
    (``compare_ps_inner``); with ``--compare-eval-dot``, each given
    dot-product source likewise, at ``DOT_CASES``, each launch on inputs
-   out of L2 (``compare_eval_dot``);
+   out of L2 (``compare_eval_dot``); with ``--compare-roofline``, each given
+   K9/K10 source likewise: K10 at ragged lengths and 1 GiB, then streaming
+   1 GiB and at each ``ntt4p_gl_ab`` row graph-replayed, beside
+   ``torch.add``; K9 each arm (and the chain probes a source may add) at
+   the tool's block, mont_mul also at 4x; with each build's registers,
+   spills, SASS ``CALL`` and ``sass_per_step``; a checkout root given
+   there adds its ``roofline.cu``, and its launch path's split, its eager
+   ``add_one`` beside ``torch.add`` and its ``ntt4p_gl_ab`` run in processes
+   of their own, in turns with this checkout's (``compare_roofline``,
+   ``launch_split``);
 16. the ``kernels`` summary line, then ``{"ok": true, "device": ...}``.
 
 Any mismatch, build failure or launch failure raises, and the run exits
@@ -542,6 +552,9 @@ def main() -> int:
     ap.add_argument("--compare-eval-dot", nargs="+", type=Path, default=[], metavar="SRC",
                     help="other eval_dot.cu sources to check and time in turns with "
                          "csrc/eval_dot.cu")
+    ap.add_argument("--compare-roofline", nargs="+", type=Path, default=[], metavar="SRC",
+                    help="other K9/K10 sources (csrc/compare/*.cu) or checkout roots to "
+                         "check and time in turns with csrc/roofline.cu and this launch path")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -764,6 +777,9 @@ def main() -> int:
     if args.compare_eval_dot:
         torch.cuda.empty_cache()
         compare_eval_dot(args.compare_eval_dot, gen, ceil["ceilings"])
+    if args.compare_roofline:
+        torch.cuda.empty_cache()
+        compare_roofline(args.compare_roofline)
 
     ntt_keys = ("largest_shape", "largest_inverse", "largest_ms", "largest_plain_ms",
                 "largest_bound_ms", "largest_bound_by", "device_ms_per_query",
@@ -1237,9 +1253,8 @@ def compare_ntt(sources, gen) -> None:
                 if not torch.equal(out, want):
                     raise AssertionError(f"NTT {name} != plain at {shape} inverse={inverse}")
             del want
-            turns = {name: [] for name in builds}
-            for name in list(builds) + list(builds)[::-1]:
-                turns[name].append(graph_ms(lambda: builds[name](x, tb, inverse, out)))
+            turns = in_turns({name: (lambda r=run: graph_ms(lambda: r(x, tb, inverse, out)))
+                              for name, run in builds.items()})
             emit({"compare_ntt": list(shape), "inverse": inverse,
                   "bound_ms": ntt_bound_ms(shape, tb.L, tb.n, inverse)[0],
                   "ms": {name: sum(t) / len(t) for name, t in turns.items()}})
@@ -1293,9 +1308,8 @@ def compare_ps_inner(sources, gen) -> None:
             if not torch.equal(out, want):
                 raise AssertionError(f"PS inner sums {name} != plain at {label}")
         del want
-        turns = {name: [] for name in builds}
-        for name in list(builds) + list(builds)[::-1]:
-            turns[name].append(graph_ms(lambda: builds[name](low, cache5, q, C, out)))
+        turns = in_turns({name: (lambda r=run: graph_ms(lambda: r(low, cache5, q, C, out)))
+                          for name, run in builds.items()})
         emit({"compare_ps_inner": label, "low": list(low.shape), "cache5": list(cache5.shape),
               "cache5_row_stride": cache5.stride(0), "plan": ps_plan(cache5, C),
               "bound_ms": ps_bound_ms(tuple(low.shape), tuple(cache5.shape))[0],
@@ -1369,9 +1383,8 @@ def compare_eval_dot(sources, gen, ceilings) -> None:
             pw, ch = copies[turn[0] % len(copies)]
             run(pw, ch, base, out)
 
-        turns = {name: [] for name in builds}
-        for name in list(builds) + list(builds)[::-1]:
-            turns[name].append(graph_ms(lambda: cold(builds[name])))
+        turns = in_turns({name: (lambda r=run: graph_ms(lambda: cold(r)))
+                          for name, run in builds.items()})
         B, D, _, L, N = powers.shape
         work = dot_work(tuple(powers.shape), tuple(cache.shape))
         emit({"compare_eval_dot": label, "powers": list(powers.shape),
@@ -1383,6 +1396,336 @@ def compare_eval_dot(sources, gen, ceilings) -> None:
               "ms": {name: sum(t) / len(t) for name, t in turns.items()}, "turns_ms": turns})
         del powers, cache, out, copies
         torch.cuda.empty_cache()
+
+
+# the K9 probes a comparison source may add to apsu_vpu_loop, by op code
+# (csrc/compare/k9_probes.cu): dependent chains of one instruction, to read
+# that instruction's rate
+PROBE_OPS = ("imad_wide_chain", "imad_hi_chain")
+# K10's ragged lengths: around a 4-element vector, a 4096-element tile of the
+# small launch (and of a ring's 16 KB stage), a ragged last tile, and the
+# switch to the large launch's shape at 2^23 elements
+ADD_LENGTHS = (1, 3, 4, 5, 4095, 4096, 4097, 8191, 8192, 8193, 3 * 4096 + 1027,
+               264 * 4096 + 4095, 1 << 20, (1 << 23) - 1, (1 << 23) + 5)
+
+
+def in_turns(runs: dict, trials: int = 1) -> dict:
+    """Each of ``runs`` (name: a callable that returns a reading) read in
+    turns, A, B, ..., B, A, ``trials`` times over, so that a drift of the
+    host's or the card's speed falls on every one alike: each name's
+    readings in order, two a trial."""
+    turns = {name: [] for name in runs}
+    for _ in range(trials):
+        for name in list(runs) + list(runs)[::-1]:
+            turns[name].append(runs[name]())
+    return turns
+
+
+def turns_summary(turns: dict, own: str) -> dict:
+    """``in_turns`` readings with each name's best and mean, and against
+    ``own`` the least and the most of the trials' differences (name - own,
+    each trial's mean of its two readings): a difference is outside the
+    trials' spread only where the two have one sign."""
+    def trials(r):
+        return [(r[i] + r[i + 1]) / 2 for i in range(0, len(r), 2)]
+
+    base = trials(turns[own])
+    diffs = {k: [b - a for a, b in zip(base, trials(r))] for k, r in turns.items() if k != own}
+    return {"readings": turns, "best": {k: min(r) for k, r in turns.items()},
+            "mean": {k: sum(r) / len(r) for k, r in turns.items()},
+            "minus_own": {k: [min(d), max(d)] for k, d in diffs.items()}}
+
+
+def probe_plain(x, op: str, outer: int):
+    """Plain int64 versions of the K9 probes: ``imad_wide_chain`` keeps a
+    64-bit w, a round from (lo, hi) = (acc, x), w = lo(w) * hi(w) a step,
+    and ends acc = lo(w) ^ hi(w); ``imad_hi_chain`` is acc = hi(acc * x) + x."""
+    from apsu_tpu_torch.core.mod32 import MASK32, mul_hi, mul_wide
+    from apsu_tpu_torch.ops.roofline import REPS
+
+    acc = x.to(torch.int64) & MASK32
+    for _ in range(outer):
+        xs = acc
+        if op == "imad_wide_chain":
+            lo, hi = acc, xs
+            for _ in range(REPS):
+                hi, lo = mul_wide(lo, hi)
+            acc = lo ^ hi
+        else:
+            for _ in range(REPS):
+                acc = (mul_hi(acc, xs) + xs) & MASK32
+    return acc.to(torch.int32)
+
+
+def launch_split(reps: int = 2000) -> dict:
+    """Where an eager K10 call's host time goes in the package this process
+    imported: CUDA events around ``reps`` eager calls of each piece of its
+    path, in turns, on 2^16 elements (whose kernel is shorter than any
+    piece), milliseconds a call.  The torch calls among the pieces are what
+    a launch path may spend besides its ctypes entry: a ``Stream`` object,
+    ``torch.cuda.device``, the capture check.  Then K1's host enqueue time a
+    call, microseconds, at the 1M-2048-cmp eval shape (its kernel outlasts
+    the host), through ``ntt`` and through ``_build.launch``.  Last, at each
+    ``ntt4p_gl_ab`` row, eager ``add_one(x)`` and ``torch.add(x, 1)`` in
+    turns, 200 calls a window (the tool itself reads one window each, in
+    that order).  Only calls that every checkout's package has are made."""
+    from apsu_tpu_torch.core.nt import gen_ntt_primes
+    from apsu_tpu_torch.core.ntt import NttContext
+    from apsu_tpu_torch.ops import _build, roofline
+    from apsu_tpu_torch.ops import ntt as ntt_op
+    from apsu_tpu_torch.tools import cuda_ms
+
+    x = torch.zeros(1 << 16, dtype=torch.int32, device="cuda")
+    o = torch.empty_like(x)
+    idx, entry = x.get_device(), _build.lib().apsu_add_one
+    xp, op, n = x.data_ptr(), o.data_ptr(), x.numel()
+    s = torch.cuda.current_stream(idx).cuda_stream
+
+    def switch():
+        with torch.cuda.device(idx):
+            pass
+
+    pieces = {
+        "torch.add(x, 1)": lambda: torch.add(x, 1),
+        "torch.add(x, 1, out=o)": lambda: torch.add(x, 1, out=o),
+        "add_one(x)": lambda: roofline.add_one(x),
+        "add_one_cuda(x, o)": lambda: roofline.add_one_cuda(x, o),
+        "_build.launch": lambda: _build.launch("add_one", entry, idx, xp, op, n),
+        "ctypes entry": lambda: entry(xp, op, n, s),
+        "torch.empty_like(x)": lambda: torch.empty_like(x),
+        "current_stream().cuda_stream": lambda: torch.cuda.current_stream(idx).cuda_stream,
+        "raw stream": lambda: torch._C._cuda_getCurrentRawStream(idx),
+        "is_current_stream_capturing": torch.cuda.is_current_stream_capturing,
+        "torch.cuda.device enter+exit": switch,
+        "torch._C._cuda_getDevice": torch._C._cuda_getDevice,
+    }
+    split = in_turns({k: (lambda f=f: cuda_ms(f, reps)) for k, f in pieces.items()})
+
+    tb = NttContext(gen_ntt_primes([28, 27], 2 * 4096), 4096, "cuda")
+    y = torch.zeros((72, 5, 2, 2, 4096), dtype=torch.int32, device="cuda")
+    z = torch.empty_like(y)
+    ntt_entry = _build.lib().apsu_ntt
+    args = (y.data_ptr(), z.data_ptr(), tb.w_pl_u32.data_ptr(), tb.w_sh_u32.data_ptr(),
+            tb.p_u32.data_ptr(), tb.ninv_pl_u32.data_ptr(), tb.ninv_sh_u32.data_ptr(),
+            y.numel() // 4096, 2, tb.logn, 0)
+
+    def host_us(fn, calls=200):
+        def run():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            return (t1 - t0) / calls * 1e6
+        return run
+
+    host = in_turns({"ntt(y)": host_us(lambda: ntt_op.ntt(y, tb)),
+                     "_build.launch": host_us(lambda: _build.launch("ntt", ntt_entry, idx,
+                                                                    *args))})
+    rows = []
+    for L in (4, 7, 14):
+        for B in (64, 256):
+            w = torch.zeros((B, L, 8192), dtype=torch.int32, device="cuda")
+            eager = in_turns({"add_one(x)": lambda: cuda_ms(lambda: roofline.add_one(w), 200),
+                              "torch.add(x, 1)": lambda: cuda_ms(lambda: torch.add(w, 1), 200)})
+            rows.append({"L": L, "B": B, **{k: sum(r) / 2 for k, r in eager.items()}})
+            del w
+    return {"elems": n, "reps": reps, "ms": {k: sum(r) / 2 for k, r in split.items()},
+            "ntt_shape": list(y.shape), "ntt_host_us": {k: sum(r) / 2 for k, r in host.items()},
+            "eager_rows_ms": rows}
+
+
+def checkouts_in_turns(roots, argv) -> dict:
+    """The command ``python argv(root)`` run from this checkout and from
+    each of ``roots`` (another checkout's root), each in a process of its
+    own that imports its checkout's package, the processes in turns: each
+    checkout's readings (the last line of its output, as JSON), two."""
+    def run(root):
+        def once():
+            res = subprocess.run([sys.executable, *argv(root)], cwd=root, capture_output=True,
+                                 text=True, timeout=900)
+            if res.returncode != 0:
+                raise RuntimeError(f"{argv(root)} in {root} exited {res.returncode}:\n"
+                                   f"{res.stderr[-3000:]}")
+            out = json.loads(res.stdout.strip().splitlines()[-1])
+            if not Path(out.get("package", root)).resolve().is_relative_to(root):
+                raise RuntimeError(f"{argv(root)} in {root} imported {out['package']}")
+            return out
+        return once
+
+    return in_turns({str(root): run(root) for root in [ROOT, *map(Path.resolve, roots)]})
+
+
+def compare_roofline(sources) -> dict:
+    """Each given K9/K10 source, built alone and held against the plain
+    versions (K10 at ``ADD_LENGTHS`` with values that wrap and at 1 GiB; K9
+    every arm it takes at a ragged count and at the tool's block), then
+    timed in turns (``in_turns``) with the package's kernels: K10 streaming
+    1 GiB (16 launches a window, beside ``torch.add``), and at each
+    ``ntt4p_gl_ab`` row graph-replayed (beside ``torch.add``), K9 each arm
+    at the tool's block and 256 rounds, mont_mul also at 4x its elements.  Each build
+    reports its registers, spills, SASS ``CALL`` count and K9's
+    ``sass_per_step``.
+
+    A source is a ``roofline.cu`` variant (those in ``csrc/compare/``: it may
+    export only one of ``apsu_vpu_loop`` and ``apsu_add_one``, and
+    ``apsu_vpu_loop`` may refuse an arm or take the probes of
+    ``PROBE_OPS`` as op codes 4, 5) or the root of another checkout, whose
+    ``csrc/roofline.cu`` is built and whose package's launch path, eager
+    calls and ``ntt4p_gl_ab`` run in processes of their own, in turns with
+    this checkout's (``launch_split``, ``checkouts_in_turns``)."""
+    import ctypes
+
+    from apsu_tpu_torch.core.mod32 import from_u32
+    from apsu_tpu_torch.ops import _build, roofline
+    from apsu_tpu_torch.tools import graph_ms, vpu_roofline, window_ms
+
+    roots = [s.resolve() for s in sources if s.is_dir()]
+    sources = [s / "apsu_tpu_torch" / "csrc" / "roofline.cu" if s.is_dir() else s
+               for s in sources]
+    names = roofline.OPS + PROBE_OPS
+    own = "csrc/roofline.cu"
+    adds, loops = {}, {}
+    tree = _build.lib()
+    for src, lib, log in build_alone([_build.CSRC / "roofline.cu", *sources], "roofline"):
+        name = own if src == _build.CSRC / "roofline.cu" else str(src)
+        so = tree if name == own else ctypes.CDLL(str(lib))
+        if hasattr(so, "apsu_add_one"):
+            so.apsu_add_one.argtypes, so.apsu_add_one.restype = tree.apsu_add_one.argtypes, ctypes.c_int
+            adds[name] = so.apsu_add_one
+        if hasattr(so, "apsu_vpu_loop"):
+            so.apsu_vpu_loop.argtypes = tree.apsu_vpu_loop.argtypes
+            so.apsu_vpu_loop.restype = ctypes.c_int
+            loops[name] = so.apsu_vpu_loop
+        calls = sum(len(re.findall(r"^\s+/\*[0-9a-f]{4}\*/\s+CALL", f, re.M))
+                    for f in sass_functions(lib, "add_one|vpu_loop"))
+        emit({"compare_roofline_build": name, **ptxas_stats(log), "sass_calls": calls,
+              "sass_per_step": vpu_roofline.sass_per_step(lib, names) if name in loops else None})
+
+    def add(entry, x, out):
+        _build.launch("add_one", entry, x.get_device(), x.data_ptr(), out.data_ptr(), x.numel())
+
+    def loop(entry, x, out, code, outer):
+        _build.launch("vpu_loop", entry, x.get_device(), x.data_ptr(), out.data_ptr(), x.numel(),
+                      code, roofline.P, roofline.PNI, outer)
+
+    res = {"k10": {}, "k9": {}}
+    # K10 against its plain version, then timed
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    for n in ADD_LENGTHS:
+        x = torch.randint(0, 1 << 32, (n,), dtype=torch.int64, device="cuda", generator=gen)
+        x[: min(n, 7)] = (1 << 32) - 1   # wraps to 0
+        x = x.to(torch.int32)
+        want = roofline.add_one_plain(x)
+        for name, entry in adds.items():
+            out = torch.full_like(x, 7)
+            add(entry, x, out)
+            if not torch.equal(out, want):
+                raise AssertionError(f"add_one {name} != plain at n={n}")
+    a = torch.randint(0, 1 << 30, (1 << 28,), dtype=torch.int32, device="cuda", generator=gen)
+    b = torch.empty_like(a)
+    want = roofline.add_one_plain(a)
+    for name, entry in adds.items():
+        b.zero_()
+        add(entry, a, b)
+        if not torch.equal(b, want):
+            raise AssertionError(f"add_one {name} != plain at 1 GiB")
+    del want
+    emit({"compare_roofline": "add_one checked", "lengths": list(ADD_LENGTHS) + [1 << 28],
+          "builds": list(adds)})
+
+    def stream(step):
+        def run():
+            return window_ms(lambda: [step(a, b) if i % 2 == 0 else step(b, a)
+                                      for i in range(16)])[1] / 16
+        return run
+
+    runs = {name: stream(lambda s, d, e=entry: add(e, s, d)) for name, entry in adds.items()}
+    runs["torch.add"] = stream(lambda s, d: torch.add(s, 1, out=d))
+    for run in runs.values():
+        run()
+    res["k10"]["1 GiB"] = {"bound_ms": 2 * a.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+                           **turns_summary(in_turns(runs, trials=10), own)}
+    emit({"compare_roofline": "add_one 1 GiB", **res["k10"]["1 GiB"]})
+    del a, b
+    torch.cuda.empty_cache()
+    for L in (4, 7, 14):
+        for B in (64, 256):
+            x = torch.randint(0, 1 << 28, (B, L, 8192), dtype=torch.int32, device="cuda",
+                              generator=gen)
+            out = torch.empty_like(x)
+            graph = {name: (lambda e=entry: graph_ms(lambda: add(e, x, out), reps=32))
+                     for name, entry in adds.items()}
+            graph["torch.add"] = lambda: graph_ms(lambda: torch.add(x, 1, out=out), reps=32)
+            row = {"L": L, "B": B, "bytes": 2 * x.numel() * 4,
+                   "bound_ms": 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+                   "graph": turns_summary(in_turns(graph, trials=5), own)}
+            res["k10"][f"L={L} B={B}"] = row
+            emit({"compare_roofline": "add_one row", **row})
+            del x, out
+
+    # K9 against its plain version, then timed
+    block = from_u32(np.random.default_rng(0).integers(1, 1 << 28, (8, 512, 128), np.uint64)
+                     .astype(np.uint32), "cuda")
+    big = from_u32(np.random.default_rng(1).integers(1, 1 << 28, (32, 512, 128), np.uint64)
+                   .astype(np.uint32), "cuda")
+    ragged = torch.randint(0, 1 << 32, (4 * 129 + 3,), dtype=torch.int64, device="cuda",
+                           generator=gen).to(torch.int32)
+    one = torch.zeros(1, dtype=torch.int32, device="cuda")
+    takes = {}
+    for name, entry in loops.items():
+        takes[name] = []
+        for code, op in enumerate(names):
+            err = entry(one.data_ptr(), one.data_ptr(), 1, code, roofline.P, roofline.PNI, 1,
+                        torch.cuda.current_stream().cuda_stream)
+            if err not in (0, 1):   # 1: cudaErrorInvalidValue, the arm is not in this source
+                _build.check(err, f"vpu_loop {name} {op}")
+            if err:
+                continue
+            takes[name].append(op)
+            for x, outer in [(ragged, 3), (block, 2)]:
+                plain = (roofline.vpu_loop_plain(x, op, outer) if op in roofline.OPS
+                         else probe_plain(x, op, outer))
+                got = torch.empty_like(x)
+                loop(entry, x, got, code, outer)
+                if not torch.equal(got, plain):
+                    raise AssertionError(f"vpu_loop {name} {op} != plain at n={x.numel()}")
+    emit({"compare_roofline": "vpu_loop checked", "arms_by_build": takes})
+    out = torch.empty_like(big)
+    for code, op in enumerate(names):
+        for label, x in [("tool block", block)] + ([("4x block", big)] if op == "mont_mul" else []):
+            runs = {name: (lambda e=entry, c=code, x=x: window_ms(
+                        lambda: loop(e, x, out[: x.shape[0]], c, 256))[1])
+                    for name, entry in loops.items() if op in takes[name]}
+            if not runs:
+                continue
+            for run in runs.values():
+                run()
+            steps = x.numel() * roofline.REPS * 256
+            row = {"arm": op, "shape": list(x.shape), "steps": steps,
+                   "bound_ms": (vpu_roofline.bound_ms(op, steps) if op in roofline.OPS
+                                else None),
+                   **turns_summary(in_turns(runs, trials=4), own if own in runs else next(iter(runs)))}
+            res["k9"][f"{op} {label}"] = row
+            emit({"compare_roofline": "vpu_loop", **row})
+    del block, big, out
+    torch.cuda.empty_cache()
+
+    # each checkout's launch path and ntt4p_gl_ab, in processes of their own
+    res["launch_split"] = checkouts_in_turns(
+        roots, lambda root: [str(ROOT / "chip_smoke.py"), "--launch-split-child", str(root)])
+    emit({"compare_roofline": "launch split", "by_checkout": res["launch_split"]})
+    tools = checkouts_in_turns(roots, lambda root: ["-m", "apsu_tpu_torch.tools.ntt4p_gl_ab"])
+    res["ntt4p_gl_ab"] = {
+        root: [[{k: row[k] for k in ("L", "B", "add_one_graph_ms", "add_one_eager_ms",
+                                     "torch_add_eager_ms")} for row in run["rows"]]
+               for run in runs]
+        for root, runs in tools.items()}
+    emit({"compare_roofline": "ntt4p_gl_ab", "by_checkout": res["ntt4p_gl_ab"]})
+    return res
 
 
 def psu_path(args, gen, name: str, sharded: bool = False, query_items: int = QUERY_ITEMS,
@@ -2283,4 +2626,10 @@ def grid_path(args, gen) -> dict:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cli-child"]:   # the CLI processes of phases 9 and 13
         sys.exit(cli_child(sys.argv[2], sys.argv[3], sys.argv[4:]))
+    if sys.argv[1:2] == ["--launch-split-child"]:   # compare_roofline's checkouts
+        sys.path.insert(0, sys.argv[2])
+        import apsu_tpu_torch
+
+        print(json.dumps({"package": apsu_tpu_torch.__file__, **launch_split()}))
+        sys.exit(0)
     sys.exit(main())

@@ -59,3 +59,40 @@ def test_sources_import_neither_jax_nor_reference():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [str(f) for f in files if _IMPORT.search(f.read_text())]
     assert not offenders, offenders
+
+
+_LAZY = {
+    "run_psu": "apsu_tpu_torch.api.protocol", "run_psu_mpc": "apsu_tpu_torch.api.protocol",
+    "PsuResult": "apsu_tpu_torch.api.protocol", "Sender": "apsu_tpu_torch.api.parties",
+    "Receiver": "apsu_tpu_torch.api.parties", "ReceiverDB": "apsu_tpu_torch.db.receiver_db",
+    "BfvContext": "apsu_tpu_torch.core.bfv",
+}
+
+
+def test_top_level_api_is_lazy_and_the_ports_own():
+    """The reference's lazy top-level names (``apsu_tpu/__init__.py``), each
+    the port's object; ``import apsu_tpu_torch`` alone loads none of their
+    modules, nor jax nor the JAX package, until a name is asked for."""
+    import importlib
+
+    for name, module in _LAZY.items():
+        assert getattr(apsu_tpu_torch, name) is getattr(importlib.import_module(module), name)
+    code = (
+        "import sys, apsu_tpu_torch\n"
+        f"lazy = {sorted(set(_LAZY.values()))!r}\n"
+        "def loaded():\n"
+        "    return [m for m in sys.modules if m in lazy or m == 'jax' or m.startswith('jax.')\n"
+        "            or m == 'apsu_tpu' or m.startswith('apsu_tpu.')]\n"
+        "assert not loaded(), loaded()\n"
+        "apsu_tpu_torch.ReceiverDB\n"
+        "assert 'apsu_tpu_torch.db.receiver_db' in loaded(), loaded()\n"
+        "assert not [m for m in loaded() if 'jax' in m or m.startswith('apsu_tpu.')], loaded()\n"
+        "try:\n"
+        "    apsu_tpu_torch.no_such_name\n"
+        "except AttributeError:\n"
+        "    print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stdout + out.stderr

@@ -236,10 +236,12 @@ def test_eval_dot_plan_keeps_its_clusters_resident(B, C, D, L, N):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", roofline.OPS)
-@pytest.mark.parametrize("n,outer", [(8 * 512 * 128, 2), (4 * 129 + 3, 3), (1, 1)])
+@pytest.mark.parametrize("n,outer", [(8 * 512 * 128, 2), (4 * 129 + 3, 3), (1, 1), (5, 2),
+                                     (4 * 256 + 1, 1), (4 * 1023 + 2, 2)])
 def test_vpu_loop_kernel_matches_plain(op, n, outer):
-    """Every arm at the tool's block, a count that leaves the last threads'
-    chains ragged, and one element; inputs span the full u32 range."""
+    """Every arm at the tool's block, counts that leave the last threads'
+    chains or the last block ragged, and one element; inputs span the full
+    u32 range."""
     _need_cuda()
     rng = np.random.default_rng(n)
     x = torch.from_numpy(rng.integers(0, 1 << 32, n, np.uint64).astype(np.uint32).view(np.int32))
@@ -247,8 +249,11 @@ def test_vpu_loop_kernel_matches_plain(op, n, outer):
     assert torch.equal(roofline.vpu_loop_cuda(x, op, outer), roofline.vpu_loop_plain(x, op, outer))
 
 
+# K10's ragged lengths: around a vector, the small launch's 4096-element tile,
+# the switch to the large launch's shape at 2^23 elements, and 1 GiB
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [64 * 7 * 8192, 4097, 3, 1])
+@pytest.mark.parametrize("n", [64 * 7 * 8192, 4097, 3, 1, 4, 5, 4095, 4096, (1 << 23) - 1,
+                               1 << 23, (1 << 23) + 4, (1 << 23) + 5, 1 << 28])
 def test_add_one_kernel_matches_plain(n):
     _need_cuda()
     rng = np.random.default_rng(n)
@@ -274,6 +279,57 @@ def test_graph_ms_counts_replayed_launches():
     roofline.add_launches = 0
     graph_ms(lambda: roofline.add_one_cuda(x), reps=7)
     assert roofline.add_launches == 2 + 2 * 7   # two eager calls, two replays of 7
+
+
+@pytest.mark.cuda
+def test_launch_reads_the_current_stream_raw():
+    """``_build.stream_ptr`` (the raw stream every launch takes) is
+    ``torch.cuda.current_stream().cuda_stream`` on the default stream, on a
+    side stream and under graph capture, and a captured launch counts no
+    launch until its replay; the launch path's other two ``torch._C``
+    reads agree with ``torch.cuda``'s."""
+    _need_cuda()
+    from apsu_tpu_torch.ops import _build
+
+    x = torch.zeros(4096, dtype=torch.int32, device="cuda")
+    out = torch.empty_like(x)
+    assert torch._C._cuda_getDevice() == torch.cuda.current_device() == x.get_device()
+    assert torch._C._cuda_isCurrentStreamCapturing() is False
+    assert _build.stream_ptr(x.device) == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert _build.stream_ptr(x.device) == torch.cuda.current_stream().cuda_stream
+        assert _build.stream_ptr("cuda") == side.cuda_stream
+        roofline.add_one_cuda(x, out)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    roofline.add_launches = 0
+    with torch.cuda.graph(graph):
+        captured = (_build.stream_ptr(x.device), torch.cuda.current_stream().cuda_stream)
+        capturing = torch._C._cuda_isCurrentStreamCapturing()
+        roofline.add_one_cuda(x, out)
+    assert captured[0] == captured[1] != torch.cuda.default_stream().cuda_stream
+    assert capturing is True and roofline.add_launches == 0
+    x.fill_(41)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert (out == 42).all()
+
+
+@pytest.mark.cuda
+def test_launch_goes_to_the_tensors_card_with_another_current():
+    """A kernel on cuda:1's tensors while cuda:0 is current runs on cuda:1
+    and leaves cuda:0 current."""
+    _need_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    x = torch.arange(-5, 4091, dtype=torch.int32, device="cuda:1")
+    with torch.cuda.device(0):
+        got = roofline.add_one_cuda(x)
+        looped = roofline.vpu_loop_cuda(x, "mont_mul", 2)
+        assert torch.cuda.current_device() == 0
+    assert got.device == x.device and torch.equal(got, roofline.add_one_plain(x))
+    assert torch.equal(looped, roofline.vpu_loop_plain(x, "mont_mul", 2))
 
 
 SHARD_SETS = {  # tests/test_sharded.py's PS and power-DAG sets

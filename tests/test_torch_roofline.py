@@ -129,6 +129,72 @@ def test_mont_mul_folded_carry_equals_reference_redc():
     assert want.tolist() == folded
 
 
+M32 = (1 << 32) - 1
+
+
+def _mont_step_model(acc, x, p=P, pni=PNI):
+    """The kernel's mont_mul step (``csrc/roofline.cu:mont_step``) in numpy
+    uint64, instruction by instruction: w = acc*x (mul.wide), m = lo(w)*pni
+    (mul.lo), t = hi(m*p + w mod 2^64) (the mad.lo.cc / madc.hi pair, one
+    IMAD.HI.U32 with w as its 64-bit addend), u = t - p (u32 wrap), min(t,
+    u)."""
+    w = acc.astype(np.uint64) * x.astype(np.uint64)
+    m = ((w & np.uint64(M32)) * np.uint64(pni)) & np.uint64(M32)
+    v = m * np.uint64(p) + w   # may pass 2^64: numpy wraps, as the card
+    t = v >> np.uint64(32)
+    u = (t - np.uint64(p)) & np.uint64(M32)
+    return np.minimum(t, u).astype(np.uint32)
+
+
+def test_mont_step_model_matches_reference_mont_mul():
+    """acc = 2t, x = 2^31 puts t = hi(acc*x) itself through the conditional
+    subtraction (lo = 0, so m = 0): t at 0, p - 1, p, 2p - 1 and beyond; then
+    the planted [P, 2^28) values and full-range u32 operands."""
+    ts = np.array([0, 1, P - 1, P, P + 1, 2 * P - 1, 2 * P, (1 << 31) - 1], np.uint64)
+    acc = [(2 * ts) & M32, _tool_input((4, 8, 128)).reshape(-1),
+           np.random.default_rng(4).integers(0, 1 << 32, 8192, np.uint64)]
+    x = [np.full(ts.size, 1 << 31, np.uint64), _tool_input((4, 8, 128), seed=1).reshape(-1),
+         np.random.default_rng(5).integers(0, 1 << 32, 8192, np.uint64)]
+    acc, x = (np.concatenate(a).astype(np.uint32) for a in (acc, x))
+    want = np.asarray(jax.jit(ref_mod32.mont_mul)(jnp.asarray(acc), jnp.asarray(x),
+                                                    jnp.uint32(P), jnp.uint32(PNI)))
+    got = _mont_step_model(acc, x)
+    assert np.array_equal(got, want)
+    # the first cases reach each side of the subtraction at its edges
+    assert got[: ts.size].tolist() == [int(t - P) if t >= P else int(t) for t in ts]
+    planted = _tool_input((4, 8, 128)).reshape(-1)
+    assert ((planted >= P) & (planted < 1 << 28)).sum() == (1 << 28) - P
+
+
+@pytest.mark.parametrize("p", [P, 1, 3, (1 << 31) - 1, 1 << 31, M32])
+def test_min_is_the_conditional_subtraction(p):
+    """min(t, t - p mod 2^32) == (t >= p ? t - p : t) for every u32 t and
+    p < 2^32: the kernel's one-instruction select."""
+    t = np.concatenate([np.array([0, 1, p - 1, p, p + 1, 2 * p - 1, 2 * p, 1 << 31, M32],
+                                 np.uint64) & np.uint64(M32),
+                        np.random.default_rng(p & 0xFFFF).integers(0, 1 << 32, 4096, np.uint64)])
+    u = (t - np.uint64(p)) & np.uint64(M32)
+    assert np.array_equal(np.minimum(t, u), np.where(t >= np.uint64(p), t - np.uint64(p), t))
+
+
+def test_launch_checks_the_error_and_counts_outside_capture(monkeypatch):
+    """``_build.launch`` passes the device's raw current stream last, raises
+    on a nonzero return (``cudaGetLastError``), and returns 1 to count a
+    launch, 0 while the stream is captured (it counts at each replay)."""
+    from apsu_tpu_torch.ops import _build
+
+    for name, fn in [("_cuda_getDevice", lambda: 0), ("_cuda_isCurrentStreamCapturing", lambda: False),
+                     ("_cuda_getCurrentRawStream", lambda idx: 1234 + idx)]:
+        monkeypatch.setattr(torch._C, name, fn, raising=False)
+    seen = []
+    assert _build.launch("k", lambda *a: seen.append(a) or 0, 0, 7, 8) == 1
+    assert seen == [(7, 8, 1234)]
+    with pytest.raises(RuntimeError, match="k launch failed: cudaError 700"):
+        _build.launch("k", lambda *a: 700, 0)
+    monkeypatch.setattr(torch._C, "_cuda_isCurrentStreamCapturing", lambda: True)
+    assert _build.launch("k", lambda *a: 0, 0) == 0
+
+
 def test_wrappers_check_their_operands():
     x = torch.zeros(16, dtype=torch.int32)
     with pytest.raises(TypeError, match="int32"):
@@ -192,3 +258,36 @@ def test_tool_defaults_are_the_reference_grid():
     sig = inspect.signature(ntt4p_gl_ab.measure).parameters
     assert sig["Ls"].default == (4, 7, 14) and sig["Bs"].default == (64, 256)
     assert sig["n"].default == 8192
+
+
+@pytest.mark.parametrize("trials", [1, 3])
+def test_in_turns_alternates_and_summarises_the_spread(trials):
+    """``chip_smoke.in_turns`` reads A, B, C, C, B, A once a trial, and
+    ``turns_summary`` gives each name's best, mean and the least and most
+    of its trials' differences from the name it is held against."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_turns", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    order = []
+
+    def reader(name, base):
+        def read():
+            order.append(name)
+            return base + len(order)   # a drift of one a reading
+        return read
+
+    turns = smoke.in_turns({"a": reader("a", 0.0), "b": reader("b", 10.0),
+                            "c": reader("c", 20.0)}, trials=trials)
+    assert order == ["a", "b", "c", "c", "b", "a"] * trials
+    assert [len(r) for r in turns.values()] == [2 * trials] * 3
+    s = smoke.turns_summary(turns, "a")
+    assert s["readings"] is turns and s["best"]["a"] == 1.0
+    assert s["mean"]["b"] == pytest.approx(sum(turns["b"]) / (2 * trials))
+    # in turns the drift falls on every name alike: each trial's difference
+    # is the names' own
+    assert s["minus_own"] == {"b": [10.0, 10.0], "c": [20.0, 20.0]}
