@@ -17,7 +17,10 @@
 
 Randomness is drawn on the host from a ``numpy.random.Generator`` (or a
 ``CsRng``) in the reference's order, so one seed gives bit-identical keys,
-ciphertexts and masks in both packages.  Every method runs eagerly.
+ciphertexts and masks in both packages.  Every method runs eagerly.  The
+glue of the multiply, multiply-sum, relinearization and mod-switch runs
+through ``ops/behz.py`` (kernels G1–G4 on the card, their plain versions
+on the CPU), with kernel 1's transforms between them.
 """
 
 from __future__ import annotations
@@ -44,36 +47,19 @@ from apsu_tpu_torch.core.mod32 import (
     to_u32,
 )
 from apsu_tpu_torch.core.params import SealParams
-from apsu_tpu_torch.core.rns import (
-    BaseConv,
-    ExactDiv,
-    ExactLiftConv,
-    RnsBase,
-    ShenoyKumaresanConv,
-    shoup_cols,
-)
+from apsu_tpu_torch.core.rns import ExactDiv, ExactLiftConv, RnsBase, ScaleDown, shoup_cols
 from apsu_tpu_torch.device import canonical, resolve
+from apsu_tpu_torch.ops import behz
 
 NOISE_STDDEV = 3.2  # SEAL default error stddev
 BSK_BITS = 28       # Bsk prime width (the reference's APSU_BSK_BITS default)
 
 
 def _msum_tensor(base: RnsBase, fa, fb):
-    """Σ_m tensor(fa[m], fb[m]) in one RNS base's NTT-Montgomery domain,
-    INTT'd back to plain coeff residues [..., 3, Lb, N].  fa, fb:
-    [..., M, 2, Lb, N] NTT mont (broadcastable)."""
-    p, pni = base.p_d, base.pni_d
-    c0 = mont_mul(fa[..., 0, :, :], fb[..., 0, :, :], p, pni)
-    c2 = mont_mul(fa[..., 1, :, :], fb[..., 1, :, :], p, pni)
-    c1 = add_mod(
-        mont_mul(fa[..., 0, :, :], fb[..., 1, :, :], p, pni),
-        mont_mul(fa[..., 1, :, :], fb[..., 0, :, :], p, pni),
-        p,
-    )
-    f = torch.stack([c0, c1, c2], dim=-3)  # [..., M, 3, Lb, N]
-    # modular sum over M: canonical terms, exact in int64
-    s = torch.remainder(f.to(I64).sum(dim=-4), p).to(I32)
-    return base.from_mont(base.ntt.intt(s))
+    """Σ_m tensor(fa[m], fb[m]) in one RNS base's NTT-Montgomery domain
+    (kernel G2), INTT'd back to Montgomery coeff residues [..., 3, Lb, N].
+    fa, fb: [..., M, 2, Lb, N] NTT mont (broadcastable)."""
+    return base.ntt.intt(behz.mont_mac(fa, fb, base))
 
 
 def uniform_from_seed(seed: bytes, base: RnsBase, shape_lead=()) -> np.ndarray:
@@ -210,14 +196,8 @@ class BfvContext:
             bsk = RnsBase(primes, n, dev)
             self._mul_ctx_cache[key] = {
                 "bsk": bsk,
-                "conv": BaseConv(base, bsk),
                 "lift": ExactLiftConv(base, bsk),
-                "sk_conv": ShenoyKumaresanConv(bsk, base, n),
-                "t_sh_q": shoup_cols([self.t] * base.k, base.primes, dev),
-                "t_sh_bsk": shoup_cols([self.t] * bsk.k, bsk.primes, dev),
-                "qinv_sh_bsk": shoup_cols(
-                    [pow(base.prod % p, -1, p) for p in bsk.primes], bsk.primes, dev
-                ),
+                "scale": ScaleDown(base, bsk, self.t),
             }
         return self._mul_ctx_cache[key]
 
@@ -542,31 +522,21 @@ class BfvContext:
 
     def operand_forms(self, data, level: int):
         """The two NTT-Montgomery forms a BEHZ multiply needs of one
-        coeff-domain ciphertext: (f_q, f_bsk)."""
+        coeff-domain ciphertext: (f_q, f_bsk), both from one lift (G1)."""
         mc = self._mul_ctx(level)
         q, bsk = self.levels[level], mc["bsk"]
-        return (
-            q.ntt.ntt(q.to_mont(data)),
-            bsk.ntt.ntt(bsk.to_mont(mc["lift"](data))),
-        )
-
-    def _scaledown(self, mc, x_q, x_b, q, bsk):
-        """t/Q fast floor in Bsk + Shenoy–Kumaresan back to q."""
-        xt_q = shoup_mul(x_q, *mc["t_sh_q"], q.p_d)
-        xt_b = shoup_mul(x_b, *mc["t_sh_bsk"], bsk.p_d)
-        conv = mc["conv"](xt_q)
-        y_b = shoup_mul(sub_mod(xt_b, conv, bsk.p_d), *mc["qinv_sh_bsk"], bsk.p_d)
-        return mc["sk_conv"](y_b)
+        x_q, x_b = behz.lift(data, mc["lift"])
+        return q.ntt.ntt(x_q), bsk.ntt.ntt(x_b)
 
     def tensor_scaledown_fused(self, fa_q, fa_b, fb_q, fb_b, level: int):
         """BEHZ ct×ct from pre-transformed operands (see ``operand_forms``):
-        tensor in both bases, INTT, t/Q fast floor, Shenoy–Kumaresan.
-        Returns 3-component plain coeff residues [..., 3, Lq, N]."""
+        tensor in both bases (G2), INTT, t/Q fast floor and Shenoy–Kumaresan
+        (G3).  Returns 3-component plain coeff residues [..., 3, Lq, N]."""
         mc = self._mul_ctx(level)
         q, bsk = self.levels[level], mc["bsk"]
         x_q = _msum_tensor(q, fa_q[..., None, :, :, :], fb_q[..., None, :, :, :])
         x_b = _msum_tensor(bsk, fa_b[..., None, :, :, :], fb_b[..., None, :, :, :])
-        return self._scaledown(mc, x_q, x_b, q, bsk)
+        return behz.scaledown(x_q, x_b, mc["scale"])
 
     def multiply(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         """BEHZ ct×ct multiply -> 3-component ciphertext (no relinearization)."""
@@ -599,9 +569,9 @@ class BfvContext:
         lvl = b.level
         extra = max(1, (m_terms - 1).bit_length())
         mc = self._mul_ctx(lvl, extra)
-        q, bsk, lift = self.levels[lvl], mc["bsk"], mc["lift"]
-        xb = self.from_ntt(b).data
-        return q.ntt.ntt(q.to_mont(xb)), bsk.ntt.ntt(bsk.to_mont(lift(xb)))
+        q, bsk = self.levels[lvl], mc["bsk"]
+        x_q, x_b = behz.lift(self.from_ntt(b).data, mc["lift"])
+        return q.ntt.ntt(x_q), bsk.ntt.ntt(x_b)
 
     def multiply_sum_fused(self, fa_q, xa_coeff, fb_q, fb_bsk, level, m_terms):
         """Σ_m a[m]·b[m] with one scale-down for the whole sum (lazy BEHZ).
@@ -611,40 +581,31 @@ class BfvContext:
         extra = max(1, (m_terms - 1).bit_length())
         mc = self._mul_ctx(level, extra)
         q, bsk = self.levels[level], mc["bsk"]
-        fa_b = bsk.ntt.ntt(bsk.to_mont(mc["lift"](xa_coeff)))
+        fa_b = bsk.ntt.ntt(behz.lift(xa_coeff, mc["lift"], want_q=False)[1])
         x_q = _msum_tensor(q, fa_q, fb_q)
         x_b = _msum_tensor(bsk, fa_b, fb_bsk)
-        return self._scaledown(mc, x_q, x_b, q, bsk)
+        return behz.scaledown(x_q, x_b, mc["scale"])
 
     def relinearize(self, ct: Ciphertext, rk: RelinKey) -> Ciphertext:
-        """3-component -> 2-component via RNS-gadget key switching."""
+        """3-component -> 2-component via RNS-gadget key switching: the
+        digits of c2 in Q·P (G1), Σ_i d_i ⊙ ksk_i (G2) between K1's NTT and
+        INTT, then ÷ P rounded and + (c0, c1) (G4)."""
         assert ct.size == 3 and not ct.is_ntt
         lvl = ct.level
         klvl = rk.level
         assert lvl <= klvl, "relin key generated below the ciphertext level"
-        q = self.levels[lvl]
         qp = self._qp_level(lvl)
+        data = ct.data
         # keys restrict exactly to any prefix level: digit rows 0..lvl-1 and
         # limb columns {0..lvl-1, special} (the special column sits at klvl)
-        limb_cols = list(range(lvl)) + [klvl]
-        ksk = rk.ksk[:lvl][:, :, limb_cols, :]
-        data = ct.data
-        c2 = data[..., 2, :, :]  # [..., Lq, N] plain
-        digits = torch.stack([c2[..., i: i + 1, :] for i in range(q.k)])  # [k, ..., 1, N]
-        d_ntt = qp.ntt.ntt(qp.to_mont(digits))  # [k, ..., Lqp, N]
-        ksk_b = ksk.reshape((q.k,) + (1,) * (c2.dim() - 2) + tuple(ksk.shape[1:]))
-        terms = mont_mul(d_ntt[..., None, :, :], ksk_b, qp.p_d, qp.pni_d)  # [k, ..., 2, Lqp, N]
-        u = torch.remainder(terms.to(I64).sum(dim=0), qp.p_d).to(I32)
-        u = qp.from_mont(qp.ntt.intt(u))  # [..., 2, Lqp, N] plain coeff
-        u_q = self._div_p_level(lvl)(u[..., : q.k, :], u[..., q.k:, :])  # ÷ P
-        return Ciphertext(add_mod(data[..., :2, :, :], u_q, q.p_d), is_ntt=False, level=lvl)
+        d_ntt = qp.ntt.ntt(behz.digits(data[..., 2, :, :], qp, lvl))  # [k, ..., Lqp, N]
+        u = qp.ntt.intt(behz.keyswitch_mac(d_ntt, rk.ksk, qp, lvl, klvl))  # [..., 2, Lqp, N]
+        new = behz.keyswitch_div(u, data, qp, self._div_p_level(lvl))
+        return Ciphertext(new, is_ntt=False, level=lvl)
 
     def mod_switch_to(self, ct: Ciphertext, target_level: int) -> Ciphertext:
         ct = self.from_ntt(ct)
         if ct.level == target_level:
             return ct
-        data, lvl = ct.data, ct.level
-        while lvl > target_level:
-            data = self.div_drop[lvl](data[..., : lvl - 1, :], data[..., lvl - 1:, :])
-            lvl -= 1
+        data = behz.mod_switch(ct.data, self.div_drop, ct.level, target_level)
         return Ciphertext(data, is_ntt=False, level=target_level)

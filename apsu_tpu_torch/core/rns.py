@@ -12,10 +12,16 @@
 
 Residue tensors ``[..., k, N]`` are PLAIN (non-Montgomery) int32 at the
 boundaries of every operator; Montgomery factors are folded into constants.
+Each operator's ``__call__`` is the plain int64 arithmetic, the step the glue
+kernels' plain versions (``ops/behz.py``) are composed of; the classes also
+hold the kernels' constant tables (``table``, ``RnsBase.to_mont_table`` ...):
+u32 arrays in the field order of ``csrc/behz.cuh``, which each launch passes
+to its kernel by value.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -34,6 +40,53 @@ from apsu_tpu_torch.core.mod32 import (
 )
 from apsu_tpu_torch.core.ntt import NttContext
 from apsu_tpu_torch.device import resolve
+from apsu_tpu_torch.ops import behz
+from apsu_tpu_torch.ops.behz import MAXB, MAXL, MAXQ
+
+R32 = 1 << 32
+# each table's fields in csrc/behz.cuh's order, as (name, shape) of u32 words
+LIFT_LAYOUT = (("q", (MAXQ,)), ("qm", (MAXQ,)), ("qm_sh", (MAXQ,)), ("c", (MAXQ,)),
+               ("c_sh", (MAXQ,)), ("phat_mt", (MAXQ,)), ("q_inv_mt", (1,)), ("b", (MAXB,)),
+               ("m", (MAXQ, MAXB)), ("m_sh", (MAXQ, MAXB)), ("a", (MAXB,)), ("a_sh", (MAXB,)),
+               ("k", (MAXB,)), ("k_sh", (MAXB,)))
+MOD_LAYOUT = (("p", (MAXL,)), ("pni", (MAXL,)))
+SCALE_LAYOUT = (("q", (MAXQ,)), ("yq", (MAXQ,)), ("yq_sh", (MAXQ,)), ("b", (MAXB,)),
+                ("xb", (MAXB,)), ("xb_sh", (MAXB,)), ("m", (MAXQ, MAXB)), ("m_sh", (MAXQ, MAXB)),
+                ("qinv", (MAXB,)), ("qinv_sh", (MAXB,)), ("zb", (MAXB,)), ("zb_sh", (MAXB,)),
+                ("mb", (MAXB, MAXQ)), ("mb_sh", (MAXB, MAXQ)), ("msk_b", (MAXB,)),
+                ("msk_b_sh", (MAXB,)), ("pbinv", (1,)), ("pbinv_sh", (1,)), ("msk_half", (1,)),
+                ("pbq", (MAXQ,)), ("pbq_sh", (MAXQ,)))
+DIV_LAYOUT = (("q", (MAXQ,)), ("rinv", (MAXQ,)), ("rinv_sh", (MAXQ,)), ("one_sh", (MAXQ,)),
+              ("half", (MAXQ,)), ("half_q", (MAXQ, MAXQ)), ("dinv", (MAXQ, MAXQ)),
+              ("dinv_sh", (MAXQ, MAXQ)))
+
+
+def pack_table(layout, **fields) -> np.ndarray:
+    """A kernel's constant table: u32 words in ``layout``'s order, each field
+    given as a (possibly smaller) array written into the leading corner of
+    its slot, the rest zero."""
+    unknown = set(fields) - {name for name, _ in layout}
+    if unknown:
+        raise KeyError(f"no such table fields: {sorted(unknown)}")
+    out = []
+    for name, shape in layout:
+        slot = np.zeros(shape, np.uint32)
+        if name in fields:
+            v = np.asarray(fields[name], np.uint64)
+            if v.size and int(v.max()) >= R32:
+                raise ValueError(f"table field {name} does not fit 32 bits")
+            if len(shape) == 1:
+                slot[: v.size] = v.reshape(-1)
+            else:
+                slot[: v.shape[0], : v.shape[1]] = v
+        out.append(slot.reshape(-1))
+    return np.concatenate(out)
+
+
+def _shoup_fields(name, consts, primes) -> dict:
+    """Table fields ``name`` (c mod p) and ``name_sh`` (⌊c·2^32/p⌋) per limb."""
+    c = np.array([int(v) % int(p) for v, p in zip(consts, primes)], dtype=np.uint32)
+    return {name: c, name + "_sh": shoup_pair(c, np.array(primes, dtype=np.uint32))}
 
 
 def shoup_cols(consts, primes, device):
@@ -71,6 +124,25 @@ class RnsBase:
         self.rinv_sh = shoup_cols([pow(R, -1, p) for p in self.primes], self.primes, dev)
         self.phat_inv_sh = shoup_cols(self.phat_inv, self.primes, dev)
 
+    # the glue kernels' tables, built at a kernel's first launch: G1's
+    # per-limb constant multiply by R (to_mont) and R^{-1} (from_mont), G2's
+    # primes
+    @functools.cached_property
+    def to_mont_table(self) -> np.ndarray:
+        return pack_table(LIFT_LAYOUT, b=self.primes,
+                          **_shoup_fields("a", [R32 % p for p in self.primes], self.primes))
+
+    @functools.cached_property
+    def from_mont_table(self) -> np.ndarray:
+        return pack_table(LIFT_LAYOUT, b=self.primes,
+                          **_shoup_fields("a", [pow(R32, -1, p) for p in self.primes],
+                                          self.primes))
+
+    @functools.cached_property
+    def mod_table(self) -> np.ndarray:
+        c = prime_consts(self.primes)
+        return pack_table(MOD_LAYOUT, p=c.p, pni=c.p_neg_inv)
+
     @property
     def ntt(self) -> NttContext:
         if self._ntt is None:
@@ -87,12 +159,12 @@ class RnsBase:
         return out % self.prod
 
     def to_mont(self, x):
-        """x·R mod p (Shoup by the constant R mod p)."""
-        return shoup_mul(x, *self.r1_sh, self.p_d)
+        """x·R mod p (Shoup by the constant R mod p; G1 on the card)."""
+        return behz.scale(x, self)
 
     def from_mont(self, x):
-        """x·R^{-1} mod p (Shoup by the constant R^{-1} mod p)."""
-        return shoup_mul(x, *self.rinv_sh, self.p_d)
+        """x·R^{-1} mod p (Shoup by the constant R^{-1} mod p; G1 on the card)."""
+        return behz.scale(x, self, inverse=True)
 
 
 def _phat_mod_dst(src: RnsBase, dst: RnsBase):
@@ -153,6 +225,22 @@ class ExactLiftConv:
         self.q_mtinv_sh = shoup_cols(
             [Q % d * pow(mt, -1, d) % d for d in dst.primes], dst.primes, dev
         )
+
+    @functools.cached_property
+    def table(self) -> np.ndarray:
+        """G1's: src's to_mont for the q output, and the lift with dst's R
+        folded into its two last constants (the output is dst.to_mont of
+        the lift)."""
+        src, dst, mt = self.src, self.dst, 1 << 16
+        qs, bs, Q = src.primes, dst.primes, src.prod
+        m = np.array([[ph % d for d in bs] for ph in src.phat], dtype=np.uint32)
+        return pack_table(
+            LIFT_LAYOUT, q=qs, phat_mt=self.phat_mod_mt, q_inv_mt=[self.q_inv_mt], b=bs, m=m,
+            m_sh=shoup_pair(m, np.array(bs, np.uint32)[None, :]),
+            **_shoup_fields("qm", [R32 % p for p in qs], qs),
+            **_shoup_fields("c", [mt * inv % p for inv, p in zip(src.phat_inv, qs)], qs),
+            **_shoup_fields("a", [pow(mt, -1, d) * R32 % d for d in bs], bs),
+            **_shoup_fields("k", [Q % d * pow(mt, -1, d) * R32 % d for d in bs], bs))
 
     def __call__(self, x):
         """x: [..., ks, N] plain residues mod src -> [..., kd, N] plain
@@ -215,6 +303,51 @@ class ShenoyKumaresanConv:
         return torch.where(neg, out_plus, out_minus)
 
 
+class ScaleDown:
+    """BEHZ's scale-down of a tensor product x (in q and in Bsk): the t/Q fast
+    floor in Bsk, y = (t·x_B − FastBConv(t·x_q → Bsk))·Q^{-1}, then the
+    Shenoy–Kumaresan conversion of y back to q.  ``__call__`` takes plain
+    residues; ``table`` is G3's (``csrc/behz_scaledown.cu``), which takes
+    Montgomery ones, so its first constants carry R^{-1}."""
+
+    def __init__(self, q: RnsBase, bsk: RnsBase, t: int):
+        dev = q.device
+        self.q, self.bsk, self.t = q, bsk, t
+        self.conv = BaseConv(q, bsk)
+        self.sk_conv = ShenoyKumaresanConv(bsk, q, q.n)
+        self.t_sh_q = shoup_cols([t] * q.k, q.primes, dev)
+        self.t_sh_bsk = shoup_cols([t] * bsk.k, bsk.primes, dev)
+        self.qinv_sh_bsk = shoup_cols([pow(q.prod % p, -1, p) for p in bsk.primes],
+                                      bsk.primes, dev)
+
+    @functools.cached_property
+    def table(self) -> np.ndarray:
+        q, bsk, sk, t = self.q, self.bsk, self.sk_conv, self.t
+        qs, bs, B, msk = q.primes, bsk.primes, sk.B, sk.m_sk
+        m = np.array([[ph % d for d in bs] for ph in q.phat], dtype=np.uint32)
+        mb = np.array([[ph % p for p in qs] for ph in B.phat], dtype=np.uint32)
+        return pack_table(
+            SCALE_LAYOUT, q=qs, b=bs, m=m, m_sh=shoup_pair(m, np.array(bs, np.uint32)[None, :]),
+            mb=mb, mb_sh=shoup_pair(mb, np.array(qs, np.uint32)[None, :]),
+            msk_half=[sk.msk_half],
+            **_shoup_fields("yq", [t * pow(R32, -1, p) * inv for p, inv in zip(qs, q.phat_inv)],
+                            qs),
+            **_shoup_fields("xb", [t * pow(R32, -1, d) for d in bs], bs),
+            **_shoup_fields("qinv", [pow(q.prod % d, -1, d) for d in bs], bs),
+            **_shoup_fields("zb", B.phat_inv, B.primes),
+            **_shoup_fields("msk_b", [ph % msk for ph in B.phat], [msk] * B.k),
+            **_shoup_fields("pbinv", [pow(B.prod % msk, -1, msk)], [msk]),
+            **_shoup_fields("pbq", [B.prod % p for p in qs], qs))
+
+    def __call__(self, x_q, x_b):
+        """x_q [..., kq, N], x_b [..., kb, N] plain -> [..., kq, N] plain."""
+        q, bsk = self.q, self.bsk
+        xt_q = shoup_mul(x_q, *self.t_sh_q, q.p_d)
+        xt_b = shoup_mul(x_b, *self.t_sh_bsk, bsk.p_d)
+        y_b = shoup_mul(sub_mod(xt_b, self.conv(xt_q), bsk.p_d), *self.qinv_sh_bsk, bsk.p_d)
+        return self.sk_conv(y_b)
+
+
 class ExactDiv:
     """Round-to-nearest division of an RNS integer by one of its own moduli
     d: x + ⌊d/2⌋ first, then the exact floor(x/d) mod q_j =
@@ -229,6 +362,25 @@ class ExactDiv:
         self.half_mod_q = col([half % p for p in q.primes], dev)
         self.half = half
         self.one_sh = shoup_cols([1] * q.k, q.primes, dev)
+
+    @functools.cached_property
+    def table(self) -> np.ndarray:
+        """G4's: the chain q_0..q_{k-1}, d; row dd of the matrices divides by
+        limb dd (every dd >= 1), so a mod-switch from this base's level + 1
+        down to any level reads this one table."""
+        primes = self.q.primes + [self.d]
+        k = len(primes)
+        half_q = np.zeros((k, k), np.uint64)
+        dinv = np.zeros((k, k), np.uint64)
+        for dd in range(1, k):
+            for j in range(dd):
+                half_q[dd, j] = (primes[dd] >> 1) % primes[j]
+                dinv[dd, j] = pow(primes[dd], -1, primes[j])
+        return pack_table(
+            DIV_LAYOUT, q=primes, half=[p >> 1 for p in primes], half_q=half_q, dinv=dinv,
+            dinv_sh=shoup_pair(dinv.astype(np.uint32), np.array(primes, np.uint32)[None, :]),
+            one_sh=shoup_pair(np.ones(k, np.uint32), np.array(primes, np.uint32)),
+            **_shoup_fields("rinv", [pow(R32, -1, p) for p in primes], primes))
 
     def __call__(self, x_q, x_d):
         """x_q: [..., kq, N] residues mod q; x_d: [..., 1, N] residue mod d."""

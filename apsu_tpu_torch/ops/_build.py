@@ -146,6 +146,16 @@ def lib() -> ctypes.CDLL:
         L.apsu_vpu_loop.restype = i32
         L.apsu_add_one.argtypes = [vp, vp, i64, vp]
         L.apsu_add_one.restype = i32
+        L.apsu_behz_lift.argtypes = [vp, *[i64] * 4, vp, vp, i64, i32, i32, i32, i32, vp, vp]
+        L.apsu_behz_lift.restype = i32
+        L.apsu_mont_mac.argtypes = [vp, *[i64] * 6, vp, *[i64] * 6, vp, i64, i32, i32, i32,
+                                    i32, i32, vp, vp]
+        L.apsu_mont_mac.restype = i32
+        L.apsu_behz_scaledown.argtypes = [vp, vp, vp, i64, i32, i32, i32, vp, vp]
+        L.apsu_behz_scaledown.restype = i32
+        L.apsu_rns_divround.argtypes = [vp, *[i64] * 3, vp, *[i64] * 4, vp, i64, i32, i32, i32,
+                                        i32, vp, vp]
+        L.apsu_rns_divround.restype = i32
         _lib = L
     return _lib
 

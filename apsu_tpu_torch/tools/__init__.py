@@ -7,11 +7,13 @@ from __future__ import annotations
 
 import torch
 
-from apsu_tpu_torch.ops import ntt, polyeval, roofline
+from apsu_tpu_torch.ops import behz, ntt, polyeval, roofline
 
 # every kernel wrapper's launch count, as (module, name)
 _COUNTERS = ((ntt, "launches"), (polyeval, "launches"), (polyeval, "dot_launches"),
-             (roofline, "loop_launches"), (roofline, "add_launches"))
+             (roofline, "loop_launches"), (roofline, "add_launches"),
+             (behz, "lift_launches"), (behz, "mac_launches"), (behz, "scaledown_launches"),
+             (behz, "divround_launches"))
 
 
 def _launch_counts() -> list:

@@ -4,6 +4,12 @@
     python3 chip_smoke.py [--seed S] [--profile] [--compare-ntt SRC ...]
                           [--compare-ps-inner SRC ...] [--compare-eval-dot SRC ...]
                           [--compare-roofline SRC ...]
+    python3 chip_smoke.py --profile-turns ROOT
+
+The second form runs only the profiled queries (``profile_turns``): the warm
+16M-4096 and 1M-2048-cmp queries of this checkout's package and of checkout
+ROOT's, each in a process of its own, in turns, each profiled once with its
+device time charged to the port's functions.
 
 Phases, each printing one JSON object per line:
 
@@ -36,6 +42,13 @@ Phases, each printing one JSON object per line:
    query's mask must fail);
 5. the kernels again against their plain versions at every shape the warm
    PS query launched them with, and their per-query device time and bound;
+   the glue kernels G1-G4 (``ops/behz.py``) at every call of that query, on
+   the inputs it gave them, each distinct call then timed by graph replay
+   beside its byte bound and the measured stream's ceiling (phases 6, 7,
+   11, 12 and 14 do the same for their warm or recorded queries; phases 4,
+   6, 11 and 12 fail if a glue kernel never launched); each call's inputs
+   are copied with their own strides, so what is checked and timed is the
+   layout the query passed;
 6. the in-process PSU at full width on 1M-2048-cmp: 2^20 receiver items
    through ``ReceiverDB.set_data`` (cache [5, 15, 80, 2, 4096] on the card),
    a 2048-item ``Sender`` query of which 1024 items are in the DB, and
@@ -130,8 +143,15 @@ Phases, each printing one JSON object per line:
    there adds its ``roofline.cu``, and its launch path's split, its eager
    ``add_one`` beside ``torch.add`` and its ``ntt4p_gl_ab`` run in processes
    of their own, in turns with this checkout's (``compare_roofline``,
-   ``launch_split``);
-16. the ``kernels`` summary line, then ``{"ok": true, "device": ...}``.
+   ``launch_split``); with ``--compare-glue``, each given G1-G4 source
+   (``csrc/compare/glue_*.cu``) built alone, checked and timed in turns
+   with the package's kernels at every G call of phase 5's warm query
+   (``compare_glue``);
+16. the ``kernels`` summary line (K1-K3, K9, K10, then G1-G4 with their
+   launches on the in-process paths), then ``{"ok": true, "device": ...}``.
+With ``--profile``, one warm query of phases 5, 6, 7 and 14 runs under
+``torch.profiler`` (``profile_query``: device time by kernel and by the
+port function around each launch, busy and idle share).
 
 Any mismatch, build failure or launch failure raises, and the run exits
 non-zero without the ``ok`` line.  Exits non-zero at once when
@@ -415,16 +435,19 @@ def check_ntt_shapes(shapes, gen):
 def recording_kernels(calls: dict, on: bool = True, keep: bool = True):
     """While active (and ``on``), each call of a kernel's CUDA wrapper also
     appends its arguments to ``calls``: "ntt" gets (shape, inverse, tables),
-    "eval_dot" (powers shape, cache, base) and "ps_inner" (low shape, cache5,
-    base).  With ``keep`` False a call holds no tensor and no tables, only
-    what describes them: the cache's (shape, strides) and the tables' or
-    base's (primes, N), so a whole process is recorded without keeping its
-    device memory alive (``cli_child``).  The counts of launches are the
-    wrappers' own."""
+    "eval_dot" (powers shape, cache, base), "ps_inner" (low shape, cache5,
+    base) and, with ``keep``, "glue" (wrapper name, its arguments with each
+    tensor copied with its own strides, ``strided_copy``) for G1-G4.  With
+    ``keep`` False a call holds no tensor and no tables, only what describes
+    them: the cache's (shape, strides) and the tables' or base's (primes,
+    N), so a whole process is recorded without keeping its device memory
+    alive (``cli_child``).  The counts of launches are the wrappers' own."""
+    from apsu_tpu_torch.ops import behz
     from apsu_tpu_torch.ops import ntt as ntt_op
     from apsu_tpu_torch.ops import polyeval
 
     real_ntt, real_dot, real_ps = ntt_op.ntt_cuda, polyeval.eval_dot_cuda, polyeval.ps_inner_cuda
+    real_glue = {name: getattr(behz, name) for name in GLUE_WRAPPERS}
     held = (lambda t: t) if keep else (lambda t: (tuple(t.shape), tuple(t.stride())))
     tables = (lambda tb: tb) if keep else (lambda tb: (tuple(tb.primes), tb.n))
 
@@ -440,16 +463,249 @@ def recording_kernels(calls: dict, on: bool = True, keep: bool = True):
         calls["ps_inner"].append((tuple(low.shape), held(cache5), tables(base)))
         return real_ps(low, cache5, base, caches_per_bundle)
 
+    def glue(name):
+        def run(*args):
+            calls["glue"].append((name, [strided_copy(a) if isinstance(a, torch.Tensor) else a
+                                         for a in args]))
+            return real_glue[name](*args)
+        return run
+
     if on:
         ntt_op.ntt_cuda, polyeval.eval_dot_cuda, polyeval.ps_inner_cuda = ntt, dot, ps
+        if keep:
+            for name in GLUE_WRAPPERS:
+                setattr(behz, name, glue(name))
     try:
         yield calls
     finally:
         ntt_op.ntt_cuda, polyeval.eval_dot_cuda, polyeval.ps_inner_cuda = real_ntt, real_dot, real_ps
+        for name, f in real_glue.items():
+            setattr(behz, name, f)
+
+
+def strided_copy(t):
+    """A copy of ``t`` with its shape and strides (the storage it spans is
+    copied whole), so a call replayed on it reads the layout the path
+    passed: a view such as a slice of a middle axis stays a view."""
+    if t.numel() == 0:
+        return t.clone()
+    span = 1 + sum((s - 1) * st for s, st in zip(t.shape, t.stride()))
+    buf = torch.empty(span, dtype=t.dtype, device=t.device)
+    buf.copy_(t.as_strided((span,), (1,), t.storage_offset()))
+    return buf.as_strided(t.shape, t.stride())
 
 
 def kernel_calls() -> dict:
-    return {"ntt": [], "eval_dot": [], "ps_inner": []}
+    return {"ntt": [], "eval_dot": [], "ps_inner": [], "glue": []}
+
+
+# the glue kernels: (name in the kernels line, source, the reference's code it
+# stands for, its launch counter in ops/behz.py, its CUDA wrappers)
+GLUE_KERNELS = (
+    ("behz_lift", "apsu_tpu_torch/csrc/behz_lift.cu",
+     "apsu_tpu/core/bfv.py:753, :909-912; apsu_tpu/core/rns.py:165 (jitted XLA, no Pallas)",
+     "lift_launches", ("scale_cuda", "lift_cuda", "digits_cuda")),
+    ("mont_mac", "apsu_tpu_torch/csrc/mont_mac.cu",
+     "apsu_tpu/core/bfv.py:63, :776-785, :914-922 (jitted XLA, no Pallas)",
+     "mac_launches", ("mont_mac_cuda", "keyswitch_mac_cuda")),
+    ("behz_scaledown", "apsu_tpu_torch/csrc/behz_scaledown.cu",
+     "apsu_tpu/core/bfv.py:787-793; apsu_tpu/core/rns.py:129, :245 (jitted XLA, no Pallas)",
+     "scaledown_launches", ("scaledown_cuda",)),
+    ("rns_divround", "apsu_tpu_torch/csrc/rns_divround.cu",
+     "apsu_tpu/core/bfv.py:923-926, :931-945; apsu_tpu/core/rns.py:295 (jitted XLA, no Pallas)",
+     "divround_launches", ("keyswitch_div_cuda", "mod_switch_cuda")),
+)
+GLUE_WRAPPERS = tuple(w for *_, ws in GLUE_KERNELS for w in ws)
+
+
+def glue_launches() -> dict:
+    """G1-G4's launch counts, by kernel name."""
+    from apsu_tpu_torch.ops import behz
+
+    return {name: getattr(behz, counter) for name, _, _, counter, _ in GLUE_KERNELS}
+
+
+def reset_glue_launches() -> None:
+    from apsu_tpu_torch.ops import behz
+
+    for _, _, _, counter, _ in GLUE_KERNELS:
+        setattr(behz, counter, 0)
+
+
+def glue_work(name, args, out):
+    """Bytes (each input read once, each output written once) and 32-bit
+    multiplies of one glue call: a Shoup product is 3, a Montgomery product
+    4 (csrc/behz.cuh)."""
+    outs = [o for o in (out if isinstance(out, tuple) else (out,)) if o is not None]
+    out_elems = sum(o.numel() for o in outs)
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    in_elems = sum(t.numel() for t in tensors)
+    if name == "scale_cuda" or name == "digits_cuda":
+        shoups = out_elems
+    elif name == "lift_cuda":
+        x, conv, want_q = args
+        lq, lb = conv.src.k, conv.dst.k
+        shoups = x.numel() // lq * ((lq if want_q else 0) + lq + lq * lb + 2 * lb)
+    elif name == "mont_mac_cuda":
+        fa, fb, _ = args
+        return 4 * (in_elems + out_elems), out_elems // 3 * 4 * max(fa.shape[-4],
+                                                                    fb.shape[-4]) * 4
+    elif name == "keyswitch_mac_cuda":
+        d, _, qp, lvl, _ = args
+        key = lvl * 2 * qp.k * qp.n
+        return 4 * (d.numel() + key + out_elems), out_elems // 2 * 2 * lvl * 4
+    elif name == "scaledown_cuda":
+        sd = args[2]
+        lq, lb = sd.q.k, sd.bsk.k
+        shoups = out_elems // lq * (2 * lq + 2 * lb + lq * lb + 2 * (lb - 1) + 1
+                                    + lq * (lb - 1))
+    elif name == "keyswitch_div_cuda":
+        u, data, _, div = args
+        k = div.q.k
+        in_elems = u.numel() + 2 * data.numel() // data.shape[-3]
+        shoups = out_elems // k * (k + 1 + 2 * k)
+    else:   # mod_switch_cuda
+        _, _, top, target = args
+        shoups = out_elems // target * 2 * sum(range(target, top))
+    return 4 * (in_elems + out_elems), 3 * shoups
+
+
+def check_glue_calls(calls, label, ceilings) -> dict:
+    """G1-G4 against their plain versions at every call recorded in
+    ``calls`` (one query's, each on the inputs it was given), then each
+    distinct call (wrapper, shapes, strides, tables) timed by graph replay:
+    for each kernel its launches, per-query device time, bound and ceiling
+    (its bytes at phase 3's measured stream, ``ceilings``) summed over the
+    calls, and its largest call's time, plain time, bound and ceiling."""
+    from apsu_tpu_torch.ops import behz
+    from apsu_tpu_torch.tools import cuda_ms, graph_ms
+
+    by_kernel = {name: {"launches": 0, "max_abs_err": 0, "device_ms_per_query": 0.0,
+                        "bound_ms_per_query": 0.0, "ceiling_ms_per_query": 0.0,
+                        "by_wrapper": {}, "distinct": {}}
+                 for name, *_ in GLUE_KERNELS}
+    kernel_of = {w: name for name, *_, ws in GLUE_KERNELS for w in ws}
+    for wrapper, args in calls:
+        got = getattr(behz, wrapper)(*args)
+        want = getattr(behz, wrapper.replace("_cuda", "_plain"))(*args)
+        k = by_kernel[kernel_of[wrapper]]
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            if (g is None) != (w is None) or (g is not None and not torch.equal(g, w)):
+                raise AssertionError(f"{wrapper} kernel != plain ({label})")
+            if g is not None:
+                k["max_abs_err"] = max(k["max_abs_err"], max_abs_err(g, w))
+        k["launches"] += 1
+        k["by_wrapper"][wrapper] = k["by_wrapper"].get(wrapper, 0) + 1
+        key = (wrapper,) + tuple((tuple(a.shape), tuple(a.stride())) if isinstance(a, torch.Tensor)
+                                 else id(a) for a in args)
+        k["distinct"].setdefault(key, [wrapper, args, got, 0])[3] += 1
+    out = {}
+    for name, k in by_kernel.items():
+        big = None
+        for wrapper, args, got, count in k.pop("distinct").values():
+            fn = getattr(behz, wrapper)
+            ms = graph_ms(lambda: fn(*args))
+            nbytes, mults = glue_work(wrapper, args, got)
+            k["device_ms_per_query"] += ms * count
+            k["bound_ms_per_query"] += bound_ms(nbytes, mults)[0] * count
+            k["ceiling_ms_per_query"] += nbytes / ceilings["stream_bytes_per_s"] * 1e3 * count
+            if big is None or nbytes > big[3]:
+                big = (wrapper, args, ms, nbytes, mults)
+        if big is not None:
+            wrapper, args, ms, nbytes, mults = big
+            plain = getattr(behz, wrapper.replace("_cuda", "_plain"))
+            b_ms, b_by = bound_ms(nbytes, mults)
+            k.update({"largest_wrapper": wrapper, "largest_ms": ms,
+                      "largest_plain_ms": cuda_ms(lambda: plain(*args), reps=1),
+                      "largest_bound_ms": b_ms, "largest_bound_by": b_by,
+                      "largest_bytes": nbytes, "largest_mults": mults,
+                      "largest_ceiling_ms": nbytes / ceilings["stream_bytes_per_s"] * 1e3,
+                      "largest_shapes": [list(a.shape) for a in args
+                                         if isinstance(a, torch.Tensor)]})
+        out[name] = k
+    emit({"glue_check": label, **out})
+    return out
+
+
+def compare_glue(sources, calls) -> None:
+    """Each given glue source (a variant exporting one or more of G1-G4's C
+    entries, ``csrc/compare/glue_*.cu``), built alone, against the package's
+    kernels at every G call recorded in ``calls`` (phase 5's warm query) to
+    a kernel it exports: equal outputs, then each kernel's per-query device
+    time (each distinct call graph-replayed, times its count) and its
+    largest call's, read in turns with the package's build (A, B, B, A, five
+    trials; ``turns_summary``)."""
+    import ctypes
+
+    from apsu_tpu_torch.ops import _build, behz
+    from apsu_tpu_torch.tools import graph_ms
+
+    entries = {name: "apsu_" + name for name, *_ in GLUE_KERNELS}
+    kernel_of = {w: name for name, *_, ws in GLUE_KERNELS for w in ws}
+    real_lib, package_lib = _build.lib(), _build.lib
+    distinct = {}
+    for wrapper, args in calls:
+        key = (wrapper,) + tuple((tuple(a.shape), tuple(a.stride())) if isinstance(a, torch.Tensor)
+                                 else id(a) for a in args)
+        distinct.setdefault(key, [wrapper, args, 0])[2] += 1
+
+    class Lib:   # the package's library with some entries taken from a variant
+        def __init__(self, over):
+            self.over = over
+
+        def __getattr__(self, entry):
+            return self.over.get(entry) or getattr(real_lib, entry)
+
+    for src, so_path, log in build_alone(sources, "glue"):
+        so = ctypes.CDLL(str(so_path))
+        over = {}
+        for entry in entries.values():
+            if hasattr(so, entry):
+                f = getattr(so, entry)
+                f.argtypes, f.restype = getattr(real_lib, entry).argtypes, ctypes.c_int
+                over[entry] = f
+        emit({"compare_glue_build": str(src), **ptxas_stats(log), "entries": sorted(over)})
+        variant = Lib(over)
+
+        def on(lib, fn):
+            def run():
+                _build.lib = lambda: lib
+                try:
+                    return fn()
+                finally:
+                    _build.lib = package_lib
+            return run
+
+        for name, entry in entries.items():
+            if entry not in over:
+                continue
+            mine = [(w, a, c) for w, a, c in distinct.values() if kernel_of[w] == name]
+            for wrapper, args, _ in mine:
+                fn = getattr(behz, wrapper)
+                got, want = on(variant, lambda: fn(*args))(), fn(*args)
+                for g, w in zip(got if isinstance(got, tuple) else (got,),
+                                want if isinstance(want, tuple) else (want,)):
+                    if (g is None) != (w is None) or (g is not None and not torch.equal(g, w)):
+                        raise AssertionError(f"{wrapper} from {src} != the package's")
+            big = max(mine, key=lambda m: glue_work(m[0], m[1], getattr(behz, m[0])(*m[1]))[0])
+
+            def per_query(lib):
+                return lambda: sum(on(lib, lambda: graph_ms(lambda: getattr(behz, w)(*a)))() * c
+                                   for w, a, c in mine)
+
+            def largest(lib):
+                return on(lib, lambda: graph_ms(lambda: getattr(behz, big[0])(*big[1])))
+
+            own = "package"
+            emit({"compare_glue": name, "source": str(src), "distinct_calls": len(mine),
+                  "calls": sum(c for *_, c in mine), "largest_wrapper": big[0],
+                  "largest_shapes": [list(a.shape) for a in big[1]
+                                     if isinstance(a, torch.Tensor)],
+                  "per_query_ms": turns_summary(in_turns(
+                      {own: per_query(real_lib), str(src): per_query(variant)}, trials=5), own),
+                  "largest_ms": turns_summary(in_turns(
+                      {own: largest(real_lib), str(src): largest(variant)}, trials=5), own)})
 
 
 def cli_child(out: str, module: str, argv: list) -> int:
@@ -515,28 +771,194 @@ def as_set(a):
     return {(int(x), int(y)) for x, y in a}
 
 
-def profile_query(recv, req) -> None:
-    """Device time by kernel name over one warm query (torch.profiler), and
-    the device's busy share of the query's wall time."""
+# the port's functions that profile_query charges device time to: each
+# kernel a PyTorch op launched goes to the innermost of these around the op
+# ("rest" if none); the profiler links the hand-written kernels, launched
+# through ctypes, to no op, so those are reported by name.  BfvContext
+# methods, then module functions of the evaluator
+PROFILE_METHODS = ("operand_forms", "tensor_scaledown_fused", "premul_sum_rhs",
+                   "multiply_sum_fused", "relinearize", "mod_switch_to", "to_ntt", "from_ntt",
+                   "_scale_impl", "encode", "decode")
+PROFILE_FUNCTIONS = ("_ps_rows", "_run_schedule", "eval_matching_polys")
+# the hand-written kernels by the name of their __global__ function
+KERNEL_NAMES = ("ntt_kernel", "ps_inner_kernel", "eval_dot_kernel", "behz_lift_kernel",
+                "mont_mac_kernel", "behz_scaledown_kernel", "rns_divround_kernel")
+
+
+@contextlib.contextmanager
+def profile_spans():
+    """While active, each of ``PROFILE_METHODS``/``PROFILE_FUNCTIONS`` of the
+    imported package runs inside ``record_function("apsu:<name>")``."""
+    from apsu_tpu_torch.core.bfv import BfvContext
+    from apsu_tpu_torch.engine import evaluator
+
+    def span(name, f):
+        def run(*a, **k):
+            with torch.profiler.record_function("apsu:" + name):
+                return f(*a, **k)
+        return run
+
+    saved = [(BfvContext, n, getattr(BfvContext, n)) for n in PROFILE_METHODS]
+    saved += [(evaluator, n, getattr(evaluator, n)) for n in PROFILE_FUNCTIONS]
+    for owner, name, f in saved:
+        setattr(owner, name, span(name, f))
+    try:
+        yield
+    finally:
+        for owner, name, f in saved:
+            setattr(owner, name, f)
+
+
+def device_ms_by_span(events) -> dict:
+    """Device milliseconds and kernel count of every ``apsu:`` span (the
+    innermost around each PyTorch op that launched kernels) in a profiler's
+    ``events()``."""
+    out = {}
+    for e in events:
+        if not e.kernels:
+            continue
+        a = e
+        while a is not None and not a.name.startswith("apsu:"):
+            a = a.cpu_parent
+        key = a.name[5:] if a is not None else "rest"
+        d = out.setdefault(key, {"device_ms": 0.0, "kernels": 0})
+        d["device_ms"] += sum(k.duration for k in e.kernels) / 1e3
+        d["kernels"] += len(e.kernels)
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["device_ms"]))
+
+
+def profile_query(recv, req) -> dict:
+    """Device time by kernel name over one warm query (torch.profiler), the
+    plain PyTorch ops' by the port function that ran them (``profile_spans``),
+    and the device's busy share of the query's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile_spans(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         recv.run_query(req)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # kernels only: each span shows on the device too, as an annotation
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and not e.key.startswith("apsu:")]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:15]
     ours = {k: {"device_ms": sum(e.self_device_time_total for e in events if k in e.key) / 1e3,
                 "count": sum(e.count for e in events if k in e.key)}
-            for k in ("ntt_kernel", "ps_inner_kernel", "eval_dot_kernel")}
-    emit({"profile_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-          "device_idle_share": 1 - busy_ms / wall_ms, "hand_written_kernels": ours,
-          "top": [{"name": e.key[:90], "device_ms": e.self_device_time_total / 1e3,
-                   "count": e.count} for e in top]})
+            for k in KERNEL_NAMES}
+    hand_ms = sum(v["device_ms"] for v in ours.values())
+    res = {"profile_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1 - busy_ms / wall_ms, "hand_written_kernels": ours,
+           "plain_device_ms": busy_ms - hand_ms, "kernels_launched": sum(e.count for e in events),
+           "by_function": device_ms_by_span(prof.events()),
+           "top": [{"name": e.key[:90], "device_ms": e.self_device_time_total / 1e3,
+                    "count": e.count} for e in top]}
+    emit(res)
+    return res
+
+
+def ps_query(params, bfv, roots, rng, query_lvl):
+    """A query against a DB that ``set_synthetic_dense`` built with ``roots``:
+    the planted query vector, the secret key and the ``QueryRequest`` with
+    its relinearization key at ``query_lvl``."""
+    from apsu_tpu_torch.api.parties import QueryRequest, _pow_mod
+    from apsu_tpu_torch.engine.probe import plant_query
+
+    qp = params.query_params
+    t = params.seal_params.plain_modulus
+    qvec = plant_query(roots, rng, t)
+    plist = tuple(qp.query_powers)
+    stack = np.stack([_pow_mod(qvec.astype(np.uint64), s, t).astype(np.uint32) for s in plist])
+    sk = bfv.gen_secret_key(rng)
+    ct = bfv.encrypt_symmetric(bfv.encode(stack), sk, rng, level=query_lvl)
+    rk = bfv.gen_relin_key(sk, rng, level=query_lvl)
+    req = QueryRequest(power_list=plist, powers_data=ct.data, relin_key=rk.ksk)
+    return qvec, sk, req
+
+
+def profile_turns(other: Path) -> int:
+    """``--profile-turns ROOT``: ``profile_child`` in this checkout and in
+    checkout ROOT, each in a process of its own, in turns (this, ROOT, ROOT,
+    this): every reading, then for each checkout and path the best warm
+    query, the profiled query's busy and idle share, and its device time in
+    the hand-written protocol kernels, in G1-G4 and in plain PyTorch ops."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    turns = checkouts_in_turns([other], lambda root: [str(ROOT / "chip_smoke.py"),
+                                                      "--profile-child", str(root)])
+    glue = {name + "_kernel" for name, *_ in GLUE_KERNELS}
+    summary = {}
+    for root, readings in turns.items():
+        for path in ("16M-4096", "1M-2048-cmp"):
+            runs = [r[path] for r in readings]
+            profs = [r["profile"] for r in runs]
+            kern = [p["hand_written_kernels"] for p in profs]
+            summary.setdefault(root, {})[path] = {
+                "warm_best_s": [r["warm_best_s"] for r in runs],
+                "checksums": [r["checksums"] for r in runs],
+                "device_busy_ms": [p["device_busy_ms"] for p in profs],
+                "device_idle_share": [p["device_idle_share"] for p in profs],
+                "kernels_launched": [p["kernels_launched"] for p in profs],
+                "protocol_kernels_ms": [sum(v["device_ms"] for k, v in d.items() if k not in glue)
+                                        for d in kern],
+                "glue_kernels_ms": [sum(v["device_ms"] for k, v in d.items() if k in glue)
+                                    for d in kern],
+                "plain_ops_ms": [p["plain_device_ms"] for p in profs]}
+    emit({"profile_turns": turns})
+    emit({"gpu": smi, "profile_turns_summary": summary})
+    return 0
+
+
+def profile_child(seed: int) -> dict:
+    """``--profile-child ROOT``: with the package of checkout ROOT, the warm
+    16M-4096 query (dense DB, B=4, C=CACHES) and the warm 1M-2048-cmp query
+    (2^20 items through ``set_data``, a 2048-item sender), each WARM times
+    then once under ``profile_query``; the result checksums of every query."""
+    from apsu_tpu_torch.api.parties import Receiver, Sender
+    from apsu_tpu_torch.core.params import PSUParams
+    from apsu_tpu_torch.db.measured_levels import query_level
+    from apsu_tpu_torch.db.receiver_db import ReceiverDB
+    from apsu_tpu_torch.mpc.oprf import DebugOprf
+
+    def warm(recv, req):
+        out = []
+        for _ in range(WARM + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resp = recv.run_query(req)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0, int(resp.results.to(torch.int64).sum())))
+        prof = profile_query(recv, req)
+        return {"first_query_s": out[0][0], "warm_query_s": [s for s, _ in out[1:]],
+                "warm_best_s": min(s for s, _ in out[1:]), "checksums": [c for _, c in out],
+                "profile": prof}
+
+    res = {}
+    params = PSUParams.load_file(str(ROOT / "parameters" / "16M-4096.json"))
+    rng = np.random.default_rng(seed)
+    db = ReceiverDB(params, device="cuda")
+    ql = query_level(params, len(db.bfv.q_primes))
+    _, _, req = ps_query(params, db.bfv, db.set_synthetic_dense(rng, n_caches=CACHES), rng, ql)
+    res["16M-4096"] = warm(Receiver(params, db, rng=np.random.default_rng(seed + 1)), req)
+    del db, req
+    torch.cuda.empty_cache()
+
+    params = PSUParams.load_file(str(ROOT / "parameters" / "1M-2048-cmp.json"))
+    rng = np.random.default_rng(seed)
+    db_items, query = make_sets(rng, DB_ITEMS, QUERY_ITEMS, COMMON_ITEMS)
+    db = ReceiverDB(params, DebugOprf(), device="cuda")
+    db.set_data(db_items)
+    snd = Sender(params, DebugOprf(), rng=np.random.default_rng(seed + 2), device="cuda")
+    req = snd.create_query(query)
+    res["1M-2048-cmp"] = warm(Receiver(params, db, rng=np.random.default_rng(seed + 3)), req)
+    return res
 
 
 def main() -> int:
@@ -555,6 +977,9 @@ def main() -> int:
     ap.add_argument("--compare-roofline", nargs="+", type=Path, default=[], metavar="SRC",
                     help="other K9/K10 sources (csrc/compare/*.cu) or checkout roots to "
                          "check and time in turns with csrc/roofline.cu and this launch path")
+    ap.add_argument("--compare-glue", nargs="+", type=Path, default=[], metavar="SRC",
+                    help="other G1-G4 sources (csrc/compare/glue_*.cu) to check and time in "
+                         "turns with the package's at the 16M-4096 warm query's G calls")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -565,7 +990,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
 
-    from apsu_tpu_torch.api.parties import QueryRequest, Receiver, _pow_mod
+    from apsu_tpu_torch.api.parties import Receiver
     from apsu_tpu_torch.core.bfv import Ciphertext
     from apsu_tpu_torch.core.mod32 import to_u32
     from apsu_tpu_torch.core.nt import gen_ntt_primes
@@ -573,7 +998,6 @@ def main() -> int:
     from apsu_tpu_torch.core.params import PSUParams
     from apsu_tpu_torch.db.measured_levels import query_level
     from apsu_tpu_torch.db.receiver_db import ReceiverDB
-    from apsu_tpu_torch.engine.probe import plant_query
     from apsu_tpu_torch.ops import _build, polyeval
     from apsu_tpu_torch.ops import ntt as ntt_op
 
@@ -646,14 +1070,7 @@ def main() -> int:
     roots = db.set_synthetic_dense(rng, n_caches=C)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    t = params.seal_params.plain_modulus
-    qvec = plant_query(roots, rng, t)
-    plist = tuple(qp.query_powers)
-    stack = np.stack([_pow_mod(qvec.astype(np.uint64), s, t).astype(np.uint32) for s in plist])
-    sk = bfv.gen_secret_key(rng)
-    ct = bfv.encrypt_symmetric(bfv.encode(stack), sk, rng, level=ql)
-    rk = bfv.gen_relin_key(sk, rng, level=ql)
-    req = QueryRequest(power_list=plist, powers_data=ct.data, relin_key=rk.ksk)
+    qvec, sk, req = ps_query(params, bfv, roots, rng, ql)
     recv = Receiver(params, db, rng=np.random.default_rng(args.seed + 1))
     lane_match = np.stack([(roots[b] == qvec[b][None, None, :]).any(axis=1) for b in range(B)])
     emit({"main_path": "16M-4096", "build_s": build_s, "cache_shape": list(db.coeff_cache.shape),
@@ -679,6 +1096,7 @@ def main() -> int:
     timings = {}
     ntt_op.launches = 0
     polyeval.launches = 0
+    reset_glue_launches()
     for i in range(queries):
         with recording_kernels(calls, on=i == WARM):
             torch.cuda.synchronize()
@@ -686,7 +1104,7 @@ def main() -> int:
             resp = recv.run_query(req, timings=timings if i == queries - 1 else None)
             torch.cuda.synchronize()
             runs.append((resp, recv.last_mask, time.perf_counter() - t0))
-    launches = {"ntt": ntt_op.launches, "ps_inner": polyeval.launches}
+    launches = {"ntt": ntt_op.launches, "ps_inner": polyeval.launches, **glue_launches()}
     oracles = [oracle(resp, mask) for resp, mask, _ in runs]
     # control: the last warm response against the split query's mask
     control = oracle(runs[-2][0], runs[-1][1])
@@ -703,12 +1121,16 @@ def main() -> int:
         raise AssertionError("planted-match oracle failed")
     if control[1] == 0:
         raise AssertionError("the oracle accepted a response checked against another mask")
-    if launches["ntt"] == 0 or launches["ps_inner"] == 0:
+    if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
 
     # -- phase 5: kernels at every shape the warm query used -----------------
     ntt_ps = check_ntt_shapes(calls["ntt"], gen)
     emit({"ntt_warm_query": ntt_ps})
+    glue_ps = check_glue_calls(calls["glue"], "16M-4096 warm query", ceil["ceilings"])
+    if args.compare_glue:
+        compare_glue(args.compare_glue, calls["glue"])
+    calls["glue"].clear()
 
     low = rand_residues((B, ph - 1, 2, q.k, N), q.primes, gen)
     cache5 = db.coeff_cache.reshape(B * C, planes, q.k, N)[:, : nseg * ph].reshape(
@@ -720,7 +1142,7 @@ def main() -> int:
     shard16 = sharded_path(
         "16M-4096", params, db, req,
         lambda resp, mask: (lambda m, w, f: m > 0 and w == 0 and f == 0)(*oracle(resp, mask)),
-        args.seed, gen)
+        args.seed, gen, ceil["ceilings"])
     emit({"phase_wall_s": {"sharded_16M-4096": time.perf_counter() - t0}})
 
     if args.profile:
@@ -731,11 +1153,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 6: the in-process PSU at 1M-2048-cmp (and phase 12 on its DB) --
-    psu = psu_path(args, gen, "1M-2048-cmp", sharded=True)
+    psu = psu_path(args, gen, "1M-2048-cmp", ceil["ceilings"], sharded=True)
+    if not all(psu["launches"][name] for name, *_ in GLUE_KERNELS):
+        raise AssertionError(f"a glue kernel never launched at 1M-2048-cmp: {psu['launches']}")
     torch.cuda.empty_cache()
 
     # -- phase 7: the in-process PSU at 1M-2048-com (PS, 29-bit eval primes) --
-    psu_ps = psu_path(args, gen, "1M-2048-com")
+    psu_ps = psu_path(args, gen, "1M-2048-com", ceil["ceilings"])
     torch.cuda.empty_cache()
 
     # -- phase 8: run_psu_mpc at 1M-2048-cmp (KKRT, DDH PEQT, OT) -------------
@@ -753,7 +1177,7 @@ def main() -> int:
 
     # -- phase 11: labeled mode at 1M-1-32 -------------------------------------
     t1 = time.perf_counter()
-    lab = labeled_path(args, gen)
+    lab = labeled_path(args, gen, ceil["ceilings"])
     torch.cuda.empty_cache()
 
     # -- phase 13: the 2 x 2 worker grid through the four CLIs at 1M-2048-com --
@@ -765,7 +1189,7 @@ def main() -> int:
 
     # -- phase 14: the in-process PSU at 1M-256-288 (K3 at 520 planes) -------
     t3 = time.perf_counter()
-    psu256 = psu_path(args, gen, SMALL_QUERY_SET, query_items=SMALL_QUERY,
+    psu256 = psu_path(args, gen, SMALL_QUERY_SET, ceil["ceilings"], query_items=SMALL_QUERY,
                       common_items=SMALL_COMMON)
     emit({"phase_wall_s": {f"psu_{SMALL_QUERY_SET}": time.perf_counter() - t3}})
     if args.compare_ntt:
@@ -894,11 +1318,41 @@ def main() -> int:
                          + psu["sharded"]["eval_dot"] + [psu256["eval_dot"]]],
          "labeled_launches_per_query": lab["launches_per_query"]["eval_dot"]},
         *ceil["kernels"],
+        *[glue_entry(name, source, replaces, glue_ps[name], psu["glue"][name],
+                     {"ps_16M-4096": launches[name], "psu_1M-2048-cmp": psu["launches"][name],
+                      "psu_1M-2048-com": psu_ps["launches"][name],
+                      "labeled_1M-1-32": lab["launches"][name],
+                      "sharded_16M-4096": shard16["launches"][name],
+                      "sharded_1M-2048-cmp": psu["sharded"]["launches"][name],
+                      f"psu_{SMALL_QUERY_SET}": psu256["launches"][name]},
+                     [psu_ps["glue"][name], psu256["glue"][name], lab["glue"][name],
+                      shard16["glue"][name], psu["sharded"]["glue"][name]])
+          for name, source, replaces, *_ in GLUE_KERNELS],
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def glue_entry(name, source, replaces, main, cmp, by_path, others) -> dict:
+    """A glue kernel's entry of the ``kernels`` line: its launches on the
+    in-process paths, its largest call of the 16M-4096 warm query (time,
+    plain time, bound, measured-stream ceiling) and its per-query sums there
+    and at 1M-2048-cmp (``check_glue_calls``)."""
+    per_query = ("launches", "device_ms_per_query", "bound_ms_per_query",
+                 "ceiling_ms_per_query", "by_wrapper", "largest_wrapper", "largest_ms",
+                 "largest_plain_ms", "largest_bound_ms", "largest_shapes")
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(d["max_abs_err"] for d in [main, cmp] + others),
+            "tolerance": TOLERANCE,
+            "ms": main["largest_ms"], "plain_ms": main["largest_plain_ms"],
+            "bound_ms": main["largest_bound_ms"], "bound_by": main["largest_bound_by"],
+            "ceiling_ms": main["largest_ceiling_ms"], "ceiling_by": "bytes",
+            "library_ms": None, "shape": main["largest_shapes"],
+            "16M-4096_warm_query": {k: main[k] for k in per_query if k in main},
+            "1M-2048-cmp_warm_query": {k: cmp[k] for k in per_query if k in cmp}}
 
 
 # K3's shapes: (set, level, bundles, caches a bundle, powers, planes); a set
@@ -1728,8 +2182,8 @@ def compare_roofline(sources) -> dict:
     return res
 
 
-def psu_path(args, gen, name: str, sharded: bool = False, query_items: int = QUERY_ITEMS,
-             common_items: int = COMMON_ITEMS) -> dict:
+def psu_path(args, gen, name: str, ceilings: dict, sharded: bool = False,
+             query_items: int = QUERY_ITEMS, common_items: int = COMMON_ITEMS) -> dict:
     """run_psu at ``name`` at full width, 2^20 receiver items against
     ``query_items`` sender items of which ``common_items`` are in the DB,
     then warm queries: phase 6 on the non-PS 1M-2048-cmp (kernel K3), phase
@@ -1756,6 +2210,7 @@ def psu_path(args, gen, name: str, sharded: bool = False, query_items: int = QUE
     ntt_op.launches = 0
     polyeval.dot_launches = 0
     polyeval.launches = 0
+    reset_glue_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     db = ReceiverDB(params, DebugOprf(), device="cuda")
@@ -1763,16 +2218,17 @@ def psu_path(args, gen, name: str, sharded: bool = False, query_items: int = QUE
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches,
-                      "ps_inner": polyeval.launches}
+                      "ps_inner": polyeval.launches, **glue_launches()}
     snd = Sender(params, DebugOprf(), rng=np.random.default_rng(args.seed + 2), device="cuda")
     recv = Receiver(params, db, rng=np.random.default_rng(args.seed + 3))
     ntt_op.launches = 0
     polyeval.dot_launches = 0
     polyeval.launches = 0
+    reset_glue_launches()
     res = run_psu(params, query, db_items, sender=snd, receiver=recv)
     torch.cuda.synchronize()
     psu_launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches,
-                    "ps_inner": polyeval.launches}
+                    "ps_inner": polyeval.launches, **glue_launches()}
     transferred, union = as_set(res.transferred), as_set(res.union)
     psu_ok = transferred == want and union == db_set | q_set and not transferred & db_set
     emit({"psu_path": name, "db_items": len(db_items), "query_items": len(query),
@@ -1794,6 +2250,7 @@ def psu_path(args, gen, name: str, sharded: bool = False, query_items: int = QUE
     ntt_op.launches = 0
     polyeval.dot_launches = 0
     polyeval.launches = 0
+    reset_glue_launches()
     runs = []
     for i in range(WARM + 1):
         with recording_kernels(calls, on=i == WARM):
@@ -1803,7 +2260,7 @@ def psu_path(args, gen, name: str, sharded: bool = False, query_items: int = QUE
             torch.cuda.synchronize()
             runs.append((resp, recv.last_mask, time.perf_counter() - t0))
     query_launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches,
-                      "ps_inner": polyeval.launches}
+                      "ps_inner": polyeval.launches, **glue_launches()}
     launches = {k: psu_launches[k] + query_launches[k] for k in query_launches}
 
     def endgame(resp, mask):
@@ -1846,14 +2303,16 @@ def psu_path(args, gen, name: str, sharded: bool = False, query_items: int = QUE
         (pw_shape, cache, base), = calls["eval_dot"]
         powers = rand_residues(pw_shape, base.primes, gen)
         evals = check_eval_dot(powers, cache, base, f"{name} warm query (DB cache)")
+    glue = check_glue_calls(calls["glue"], f"{name} warm query", ceilings)
     if args.profile:
         profile_query(recv, req)
-    out = {"launches": launches, "ntt": ntt_summary, kernel: evals,
+    out = {"launches": launches, "ntt": ntt_summary, kernel: evals, "glue": glue,
            "launches_per_query": {k: v / (WARM + 1) for k, v in query_launches.items()}}
     if sharded:
         t0 = time.perf_counter()
         out["sharded"] = sharded_path(name, params, db, req,
-                                      lambda resp, mask: endgame(resp, mask)[0], args.seed, gen)
+                                      lambda resp, mask: endgame(resp, mask)[0], args.seed, gen,
+                                      ceilings)
         emit({"phase_wall_s": {f"sharded_{name}": time.perf_counter() - t0}})
     return out
 
@@ -2243,8 +2702,8 @@ def db_lifecycle_path(args, gen) -> dict:
     return {"launches": launches, **checks}
 
 
-def labeled_path(args, gen) -> dict:
-    """Phase 11: labeled mode at LABELED_SET (non-PS: K1, K3)."""
+def labeled_path(args, gen, ceilings) -> dict:
+    """Phase 11: labeled mode at LABELED_SET (non-PS: K1, K3, G1-G4)."""
     from apsu_tpu_torch.api.parties import Receiver, Sender, _slots_to_item_blocks
     from apsu_tpu_torch.core.bfv import Ciphertext
     from apsu_tpu_torch.core.params import PSUParams
@@ -2283,6 +2742,7 @@ def labeled_path(args, gen) -> dict:
     query, row = query[perm], row[perm]
 
     ntt_op.launches = polyeval.launches = polyeval.dot_launches = 0
+    reset_glue_launches()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2291,7 +2751,7 @@ def labeled_path(args, gen) -> dict:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches,
-                      "ps_inner": polyeval.launches}
+                      "ps_inner": polyeval.launches, **glue_launches()}
     levels = {"eval_lvl": db.eval_lvl, "labeled_eval_level": db.labeled_eval_level(),
               "unlabeled_eval_level": db.eval_level()}
     emit({"labeled_path": name, "db_items": DB_ITEMS, "query_items": len(query),
@@ -2333,6 +2793,7 @@ def labeled_path(args, gen) -> dict:
 
     calls = kernel_calls()  # the kernel launches of the last warm query
     ntt_op.launches = polyeval.launches = polyeval.dot_launches = 0
+    reset_glue_launches()
     runs = []
     for i in range(WARM + 1):
         with recording_kernels(calls, on=i == WARM):
@@ -2342,7 +2803,7 @@ def labeled_path(args, gen) -> dict:
             torch.cuda.synchronize()
             runs.append((resp, recv.last_mask, time.perf_counter() - t0))
     launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches,
-                "ps_inner": polyeval.launches}
+                "ps_inner": polyeval.launches, **glue_launches()}
     oracles = [check(resp, mask) for resp, mask, _ in runs]
     control = check(runs[-1][0], runs[0][1])
     warm = [t for _, _, t in runs[1:]]
@@ -2364,7 +2825,8 @@ def labeled_path(args, gen) -> dict:
         raise AssertionError("labeled query: a matched item's label is wrong, or a match is")
     if control[0]:
         raise AssertionError("the labels checked against another query's mask passed")
-    if launches["eval_dot"] != 2 * (WARM + 1) or launches["ntt"] == 0 or launches["ps_inner"]:
+    if (launches["eval_dot"] != 2 * (WARM + 1) or launches["ntt"] == 0 or launches["ps_inner"]
+            or not all(launches[g] for g, *_ in GLUE_KERNELS)):
         raise AssertionError(f"the labeled path's launches are wrong: {launches}")
 
     ntt_summary = check_ntt_shapes(calls["ntt"], gen)
@@ -2373,7 +2835,8 @@ def labeled_path(args, gen) -> dict:
     for (pw_shape, cache, base), which in zip(calls["eval_dot"], ("matching", "label")):
         powers = rand_residues(pw_shape, base.primes, gen)
         evals.append(check_eval_dot(powers, cache, base, f"{name} labeled query ({which} cache)"))
-    return {"launches": launches, "ntt": ntt_summary, "eval_dot": evals,
+    glue = check_glue_calls(calls["glue"], f"{name} labeled warm query", ceilings)
+    return {"launches": launches, "ntt": ntt_summary, "eval_dot": evals, "glue": glue,
             "launches_per_query": {k: v / (WARM + 1) for k, v in launches.items()}}
 
 
@@ -2385,7 +2848,7 @@ def logged(pattern, text):
     return found[-1]
 
 
-def sharded_path(name, params, db, req, exact, seed, gen) -> dict:
+def sharded_path(name, params, db, req, exact, seed, gen, ceilings) -> dict:
     """Phase 12 at one set: ``ShardedReceiver`` over a mesh of SHARDS[0]
     shard (the one-card deployment) and of SHARDS[1] shards on the one card,
     against ``Receiver.run_query`` on the same DB and request.  Each sharded
@@ -2395,8 +2858,9 @@ def sharded_path(name, params, db, req, exact, seed, gen) -> dict:
     direct and the 1-shard queries run in turns (direct, sharded, sharded,
     direct, ...), timed; each sharded query's launches are counted from 0,
     and every kernel call of the second 5-shard query is held against its
-    plain version.  The 5-shard mesh runs its row ranges one after another
-    on one card: its time is a check of the partition, not a deployment's."""
+    plain version (the glue kernels' also timed, ``check_glue_calls``).  The
+    5-shard mesh runs its row ranges one after another on one card: its time
+    is a check of the partition, not a deployment's."""
     from apsu_tpu_torch.api.parties import Receiver
     from apsu_tpu_torch.ops import ntt as ntt_op
     from apsu_tpu_torch.ops import polyeval
@@ -2413,6 +2877,7 @@ def sharded_path(name, params, db, req, exact, seed, gen) -> dict:
         recv = (Receiver(params, db, rng=rng) if n is None
                 else ShardedReceiver(params, db, meshes[n], rng=rng))
         ntt_op.launches = polyeval.launches = polyeval.dot_launches = 0
+        reset_glue_launches()
         with recording_kernels(calls, on=record):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2421,7 +2886,7 @@ def sharded_path(name, params, db, req, exact, seed, gen) -> dict:
             wall = time.perf_counter() - t0
         if n is not None:
             launches[n].append({"ntt": ntt_op.launches, "ps_inner": polyeval.launches,
-                                "eval_dot": polyeval.dot_launches})
+                                "eval_dot": polyeval.dot_launches, **glue_launches()})
         return resp, recv.last_mask, wall
 
     times = {"direct": [], SHARDS[0]: [], SHARDS[1]: []}
@@ -2465,11 +2930,12 @@ def sharded_path(name, params, db, req, exact, seed, gen) -> dict:
     for n in SHARDS:   # at least one launch of the evaluation's kernel a non-empty shard
         busy = sum(r1 > r0 for r0, r1 in meshes[n].row_ranges(rows))
         for c in launches[n]:
-            if c["ntt"] == 0 or c[kernel] < busy or c[other]:
+            if (c["ntt"] == 0 or c[kernel] < busy or c[other]
+                    or not all(c[g] for g, *_ in GLUE_KERNELS)):
                 raise AssertionError(f"{n}-shard launches are wrong ({name}): {c}")
 
     out = {"launches": {k: sum(c[k] for n in SHARDS for c in launches[n])
-                        for k in ("ntt", "ps_inner", "eval_dot")},
+                        for k in ("ntt", "ps_inner", "eval_dot", *glue_launches())},
            "ntt": check_ntt_shapes(calls["ntt"], gen), kernel: []}
     emit({"sharded_ntt": out["ntt"], "path": name, "shards": SHARDS[1]})
     label = f"{name} {SHARDS[1]}-shard query (DB cache rows)"
@@ -2477,6 +2943,7 @@ def sharded_path(name, params, db, req, exact, seed, gen) -> dict:
         x = rand_residues(first, base.primes, gen)
         out[kernel].append(check_ps_inner(x, cache, base, label) if ps
                            else check_eval_dot(x, cache, base, label))
+    out["glue"] = check_glue_calls(calls["glue"], f"{name} {SHARDS[1]}-shard query", ceilings)
     return out
 
 
@@ -2626,6 +3093,14 @@ def grid_path(args, gen) -> dict:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cli-child"]:   # the CLI processes of phases 9 and 13
         sys.exit(cli_child(sys.argv[2], sys.argv[3], sys.argv[4:]))
+    if sys.argv[1:2] == ["--profile-turns"]:
+        sys.exit(profile_turns(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--profile-child"]:   # profile_turns's checkouts
+        sys.path.insert(0, sys.argv[2])
+        import apsu_tpu_torch
+
+        print(json.dumps({"package": apsu_tpu_torch.__file__, **profile_child(0)}))
+        sys.exit(0)
     if sys.argv[1:2] == ["--launch-split-child"]:   # compare_roofline's checkouts
         sys.path.insert(0, sys.argv[2])
         import apsu_tpu_torch

@@ -1,0 +1,400 @@
+"""The plain versions of the glue kernels G1-G4 (``apsu_tpu_torch/ops/behz.py``)
+against the reference's own functions on the same seeded numpy inputs, bit
+for bit: the lift, to_mont/from_mont and relinearization's digits (G1), the
+BEHZ tensor and the key-switch sum (G2), the scale-down (G3), the key-switch
+mod-down and the mod-switch (G4).  Each runs on three contexts: small
+parameters (N=256), 1M-2048-cmp's (N=4096) and 256M-1's 30-bit primes at
+N=2048; with random residues, every residue p - 1, and every residue 0;
+and the lift's m~ correction and Shenoy-Kumaresan's alpha at their
+thresholds.  The kernels themselves are held against these plain versions on
+the card (``tests/test_torch_kernels.py``, ``chip_smoke.py``)."""
+
+import functools
+from dataclasses import replace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from apsu_tpu.core import mod32 as rmod
+from apsu_tpu.core.bfv import BfvContext as RefBfv
+from apsu_tpu.core.bfv import Ciphertext as RefCt
+from apsu_tpu.core.bfv import _msum_tensor as ref_msum_tensor
+from apsu_tpu.core.params import PSUParams as RefParams
+from apsu_tpu.core.params import SealParams as RefSeal
+from apsu_tpu_torch.core import rns
+from apsu_tpu_torch.core.bfv import BfvContext
+from apsu_tpu_torch.core.mod32 import shoup_mul, sub_mod, to_u32
+from apsu_tpu_torch.core.params import PSUParams, SealParams
+from apsu_tpu_torch.ops import behz
+
+SMALL = {
+    "table_params": {"hash_func_count": 2, "table_size": 64, "max_items_per_bin": 8},
+    "item_params": {"felts_per_item": 4},
+    "query_params": {"ps_low_degree": 0, "query_powers": [1, 2, 3, 4, 5, 6, 7, 8]},
+    "seal_params": {"plain_modulus": 65537, "poly_modulus_degree": 256,
+                    "coeff_modulus_bits": [40, 40, 30]},
+}
+SETS = ["small", "1M-2048-cmp", "256M-1 at N=2048"]
+FILLS = [None, "p-1", "zero"]
+
+
+@functools.lru_cache(maxsize=None)
+def ctxs(name):
+    """(reference, port) contexts of one of ``SETS``, the port on the CPU."""
+    if name == "small":
+        # its last prime made the special one, as a relinearizing set's is
+        ref_sp = replace(RefParams.from_dict(SMALL).seal_params, has_special=True)
+        port_sp = replace(PSUParams.from_dict(SMALL).seal_params, has_special=True)
+    elif name == "256M-1 at N=2048":
+        # 256M-1's q chain (two 30-bit primes and a 29-bit one, 2N | p - 1
+        # for N = 8192, so also for N = 2048) and its special prime
+        sp = PSUParams.load_file("parameters/256M-1.json").seal_params
+        fields = dict(poly_modulus_degree=2048, plain_modulus=sp.plain_modulus,
+                      coeff_modulus=sp.coeff_modulus,
+                      ref_coeff_modulus_bits=sp.ref_coeff_modulus_bits,
+                      has_special=sp.has_special)
+        ref_sp, port_sp = RefSeal(**fields), SealParams(**fields)
+    else:
+        ref_sp = RefParams.load_file(f"parameters/{name}.json").seal_params
+        port_sp = PSUParams.load_file(f"parameters/{name}.json").seal_params
+    return RefBfv(ref_sp), BfvContext(port_sp, device="cpu")
+
+
+def _residues(shape, primes, seed, fill=None):
+    """numpy uint32 residues of ``primes`` along axis -2."""
+    p = np.array(primes, np.uint64).reshape(-1, 1)
+    if fill == "zero":
+        return np.zeros(shape, np.uint32)
+    if fill == "p-1":
+        return np.broadcast_to(p - 1, shape).astype(np.uint32)
+    x = np.random.default_rng(seed).integers(0, 1 << 62, size=shape, dtype=np.uint64)
+    return (x % p).astype(np.uint32)
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x).view(np.int32))
+
+
+def _eq(ref, port):
+    return np.array_equal(np.asarray(jax.device_get(ref)), to_u32(port))
+
+
+def _jit(f, *args):
+    return jax.jit(f)(*args)
+
+
+def test_table_layouts_match_the_kernels_header():
+    """Each constant table has the size of its struct in csrc/behz.cuh."""
+    header = open("apsu_tpu_torch/csrc/behz.cuh").read()
+    for struct, layout in (("LiftTable", rns.LIFT_LAYOUT), ("ModTable", rns.MOD_LAYOUT),
+                           ("ScaleTable", rns.SCALE_LAYOUT), ("DivTable", rns.DIV_LAYOUT)):
+        words = sum(int(np.prod(shape)) for _, shape in layout)
+        assert f"sizeof({struct}) == {words} * 4" in header
+    for a, b in (("MAXQ", behz.MAXQ), ("MAXB", behz.MAXB), ("MAXL", behz.MAXL)):
+        assert f"constexpr int {a} = {b};" in header
+    _, port = ctxs("small")
+    mc = port._mul_ctx(port.q.k)
+    for table, layout in ((port.q.to_mont_table, rns.LIFT_LAYOUT),
+                          (mc["lift"].table, rns.LIFT_LAYOUT), (port.q.mod_table, rns.MOD_LAYOUT),
+                          (mc["scale"].table, rns.SCALE_LAYOUT),
+                          (port.div_drop[port.q.k].table, rns.DIV_LAYOUT)):
+        assert table.dtype == np.uint32 and table.size == sum(
+            int(np.prod(shape)) for _, shape in layout)
+
+
+def test_contexts_have_the_same_bases():
+    for name in SETS:
+        ref, port = ctxs(name)
+        assert ref.q_primes == port.q_primes and ref.special == port.special
+        for lvl in range(1, port.q.k + 1):
+            for extra in (0, 4):
+                assert ref._mul_ctx(lvl, extra)["bsk"].primes == \
+                    port._mul_ctx(lvl, extra)["bsk"].primes
+
+
+# ---------------------------------------------------------------------------
+# G1
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", SETS)
+@pytest.mark.parametrize("fill", FILLS)
+def test_lift_matches_reference(name, fill):
+    """(q.to_mont(x), bsk.to_mont(ExactLiftConv(x))) at the top level and
+    level 2, with the multiply's Bsk and a multiply-sum's widened one."""
+    ref, port = ctxs(name)
+    for lvl in sorted({2, port.q.k}):
+        for extra in (0, 4):
+            rmc, pmc = ref._mul_ctx(lvl, extra), port._mul_ctx(lvl, extra)
+            rq, rb = ref.levels[lvl], rmc["bsk"]
+            x = _residues((2, 2, lvl, port.n), port.q_primes[:lvl], lvl + extra, fill)
+            want_q, want_b = _jit(lambda v: (rq.to_mont(v), rb.to_mont(rmc["lift"](v))), x)
+            got_q, got_b = behz.lift_plain(_t(x), pmc["lift"])
+            assert _eq(want_q, got_q) and _eq(want_b, got_b)
+            assert behz.lift_plain(_t(x), pmc["lift"], want_q=False)[0] is None
+
+
+def _lift_at(port, lvl, rr_targets, seed):
+    """Plain residues x [len(rr_targets), lvl, N] whose m~ correction
+    r = [-y * Q^-1] mod 2^16 (before centring) is rr_targets[row] in every
+    lane: the residues above the first are random, and the first is chosen
+    so that the 16-bit sum y = sum_i c_i * qhat_i lands where r needs it."""
+    lift = port._mul_ctx(lvl)["lift"]
+    q = lift.src
+    mt, n = 1 << 16, port.n
+    x = _residues((len(rr_targets), lvl, n), q.primes, seed).astype(np.uint64)
+    c_mul = [mt * inv % p for inv, p in zip(q.phat_inv, q.primes)]
+    c = [x[:, i] * np.uint64(c_mul[i]) % np.uint64(q.primes[i]) for i in range(lvl)]
+    rest = sum(((c[i] & np.uint64(0xFFFF)) * np.uint64(lift.phat_mod_mt[i]))
+               for i in range(1, lvl)) % np.uint64(mt)
+    # r = -s, s = y * Q^-1 mod 2^16  =>  y = -r * Q mod 2^16
+    y = (-np.array(rr_targets, np.int64)[:, None] * (q.prod % mt)) % mt
+    low = (y.astype(np.uint64) - rest) % np.uint64(mt) * np.uint64(
+        pow(lift.phat_mod_mt[0], -1, mt)) % np.uint64(mt)
+    p0 = q.primes[0]
+    high = np.random.default_rng(seed + 1).integers(0, (p0 - mt) >> 16, size=low.shape,
+                                                     dtype=np.uint64)
+    c0 = (high << np.uint64(16)) | low                         # < p0, low bits fixed
+    x[:, 0] = c0 * np.uint64(pow(c_mul[0], -1, p0)) % np.uint64(p0)
+    return x.astype(np.uint32)
+
+
+@pytest.mark.parametrize("name", SETS)
+def test_lift_correction_at_its_thresholds(name):
+    """The centred m~ correction r at 2^15 - 1, 2^15 (the first negative),
+    2^15 + 1, 0 and 2^16 - 1: the lift equals the reference's."""
+    ref, port = ctxs(name)
+    lvl = port.q.k
+    targets = [0x7FFF, 0x8000, 0x8001, 0, 0xFFFF]
+    x = _lift_at(port, lvl, targets, seed=3)
+    lift = port._mul_ctx(lvl)["lift"]
+    c = shoup_mul(_t(x), *lift.mt_phat_inv_sh, lift.src.p_d).to(torch.int64)
+    c16 = sum((c[:, i] & 0xFFFF) * lift.phat_mod_mt[i] for i in range(lvl))
+    rr = ((1 << 16) - ((c16 & 0xFFFF) * lift.q_inv_mt & 0xFFFF)) & 0xFFFF
+    assert rr.tolist() == [[t] * port.n for t in targets]
+    rmc = ref._mul_ctx(lvl)
+    want = _jit(lambda v: ref._mul_ctx(lvl)["bsk"].to_mont(rmc["lift"](v)), x)
+    assert _eq(want, behz.lift_plain(_t(x), port._mul_ctx(lvl)["lift"])[1])
+
+
+@pytest.mark.parametrize("name", SETS)
+@pytest.mark.parametrize("fill", FILLS)
+def test_scale_matches_reference(name, fill):
+    """to_mont and from_mont of q, Bsk and Q·P."""
+    ref, port = ctxs(name)
+    lvl = port.q.k
+    bases = [(ref.q, port.q), (ref._mul_ctx(lvl)["bsk"], port._mul_ctx(lvl)["bsk"])]
+    bases.append((ref.qp, port.qp))
+    for rb, pb in bases:
+        x = _residues((3, pb.k, port.n), pb.primes, pb.k, fill)
+        assert _eq(_jit(rb.to_mont, x), behz.scale_plain(_t(x), pb))
+        assert _eq(_jit(rb.from_mont, x), behz.scale_plain(_t(x), pb, inverse=True))
+
+
+@pytest.mark.parametrize("name", SETS)
+@pytest.mark.parametrize("fill", FILLS)
+def test_digits_match_reference(name, fill):
+    """Relinearization's digits of c2 in Q·P, Montgomery form, at the top
+    level and one below."""
+    ref, port = ctxs(name)
+    for lvl in sorted({1, port.q.k}):
+        rqp, k = ref._qp_level(lvl), lvl
+        c = _residues((2, 3, lvl, port.n), port.q_primes[:lvl], lvl, fill)
+        want = _jit(lambda v: rqp.to_mont(jnp.stack([v[..., 2, i: i + 1, :] for i in range(k)])),
+                    c)
+        assert _eq(want, behz.digits_plain(_t(c)[..., 2, :, :], port._qp_level(lvl), k))
+
+
+# ---------------------------------------------------------------------------
+# G2
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", SETS)
+@pytest.mark.parametrize("fill", FILLS)
+@pytest.mark.parametrize("M", [1, 11])
+def test_mont_mac_matches_reference(name, fill, M):
+    """Σ_m tensor(fa[m], fb[m]) in q and in the (⌈log2 M⌉-widened) Bsk, the
+    rhs broadcast over two caches, against the reference's ``_msum_tensor``
+    (which adds the INTT and from_mont: the port's, exact, are applied)."""
+    ref, port = ctxs(name)
+    lvl = port.q.k
+    extra = max(1, (M - 1).bit_length())
+    for rbase, pbase in ((ref.q, port.q), (ref._mul_ctx(lvl, extra)["bsk"],
+                                           port._mul_ctx(lvl, extra)["bsk"])):
+        fa = _residues((2, 2, M, 2, pbase.k, port.n), pbase.primes, M, fill)
+        fb = _residues((2, 1, M, 2, pbase.k, port.n), pbase.primes, M + 1, fill)
+        want = _jit(lambda a, b: ref_msum_tensor(rbase, a, b, M), fa, fb)
+        got = pbase.from_mont(pbase.ntt.intt(behz.mont_mac_plain(_t(fa), _t(fb), pbase)))
+        assert _eq(want, got)
+
+
+@pytest.mark.parametrize("name", SETS)
+@pytest.mark.parametrize("fill", FILLS)
+def test_keyswitch_mac_matches_reference(name, fill):
+    """Σ_i d_i ⊙ ksk_i with the key read at a level below its own (limb
+    columns {0..lvl-1, special}) and at its own, against the reference's
+    mont_mul / add_mod chain of ``relinearize``."""
+    ref, port = ctxs(name)
+    klvl = port.q.k
+    ksk = _residues((klvl, 2, klvl + 1, port.n), port.q_primes + [port.special], 9, fill)
+    for lvl in sorted({1, klvl}):
+        rqp = ref._qp_level(lvl)
+        d = _residues((lvl, 2, lvl + 1, port.n), rqp.primes, lvl, fill)
+        cols = list(range(lvl)) + [klvl]
+
+        def ref_u(dd, kk):
+            key = kk[:lvl][:, :, cols, :].reshape((lvl, 1, 2, lvl + 1, port.n))
+            terms = rmod.mont_mul(dd[..., None, :, :], key, rqp.p_d, rqp.pni_d)
+            u = terms[0]
+            for i in range(1, lvl):
+                u = rmod.add_mod(u, terms[i], rqp.p_d)
+            return u
+
+        got = behz.keyswitch_mac_plain(_t(d), _t(ksk), port._qp_level(lvl), lvl, klvl)
+        assert _eq(_jit(ref_u, d, ksk), got)
+
+
+# ---------------------------------------------------------------------------
+# G3
+# ---------------------------------------------------------------------------
+
+def _ref_scaledown(ref, lvl, extra):
+    rmc = ref._mul_ctx(lvl, extra)
+    q, bsk = ref.levels[lvl], rmc["bsk"]
+
+    def run(xq, xb):
+        xt_q = rmod.shoup_mul(q.from_mont(xq), *rmc["t_sh_q"], q.p_d)
+        xt_b = rmod.shoup_mul(bsk.from_mont(xb), *rmc["t_sh_bsk"], bsk.p_d)
+        y_b = rmod.shoup_mul(rmod.sub_mod(xt_b, rmc["conv"](xt_q), bsk.p_d),
+                             *rmc["qinv_sh_bsk"], bsk.p_d)
+        return rmc["sk_conv"](y_b)
+
+    return run
+
+
+@pytest.mark.parametrize("name", SETS)
+@pytest.mark.parametrize("fill", FILLS)
+def test_scaledown_matches_reference(name, fill):
+    """From the INTT'd Montgomery tensor in q and Bsk to plain q, at the
+    top level and level 1, with the multiply's Bsk and a widened one."""
+    ref, port = ctxs(name)
+    for lvl in sorted({1, port.q.k}):
+        for extra in (0, 4):
+            sd = port._mul_ctx(lvl, extra)["scale"]
+            xq = _residues((2, 3, lvl, port.n), sd.q.primes, lvl, fill)
+            xb = _residues((2, 3, sd.bsk.k, port.n), sd.bsk.primes, lvl + 1, fill)
+            got = behz.scaledown_plain(_t(xq), _t(xb), sd)
+            assert _eq(_jit(_ref_scaledown(ref, lvl, extra), xq, xb), got)
+
+
+def _scaledown_at(port, lvl, alphas, seed):
+    """Montgomery inputs (x_q, x_b) whose Shenoy-Kumaresan alpha is
+    alphas[row] in every lane: x_q and Bsk's limbs below m_sk random, x_b's
+    m_sk limb solved for from them."""
+    sd = port._mul_ctx(lvl)["scale"]
+    q, bsk, sk = sd.q, sd.bsk, sd.sk_conv
+    msk, n, rows = sk.m_sk, port.n, len(alphas)
+    xq = _t(_residues((rows, q.k, n), q.primes, seed))
+    xb = _t(_residues((rows, bsk.k, n), bsk.primes, seed + 1))
+    xt_q = shoup_mul(behz.scale_plain(xq, q, True), *sd.t_sh_q, q.p_d)
+    conv_sk = sd.conv(xt_q)[:, -1].to(torch.int64)
+    xt_b = shoup_mul(behz.scale_plain(xb, bsk, True), *sd.t_sh_bsk, bsk.p_d)
+    y_b = shoup_mul(sub_mod(xt_b, sd.conv(xt_q), bsk.p_d), *sd.qinv_sh_bsk, bsk.p_d)
+    yhat_sk = sk.conv_b_to_sk(y_b[:, :-1])[:, 0].to(torch.int64)
+    alpha = torch.tensor(alphas, dtype=torch.int64)[:, None]
+    y_sk = (yhat_sk - alpha * (sk.B.prod % msk)) % msk
+    xt_sk = (y_sk * (q.prod % msk) + conv_sk) % msk
+    x_sk = xt_sk * (pow(port.t, -1, msk) * (1 << 32) % msk) % msk
+    xb[:, -1] = x_sk.to(torch.int32)
+    return xq, xb
+
+
+@pytest.mark.parametrize("name", SETS)
+def test_scaledown_alpha_at_its_threshold(name):
+    """Shenoy-Kumaresan's alpha just below, at and above (m_sk + 1) / 2 (where
+    it turns negative), at 0 and at m_sk - 1: the scale-down equals the
+    reference's."""
+    ref, port = ctxs(name)
+    lvl = port.q.k
+    sd = port._mul_ctx(lvl)["scale"]
+    half, msk = sd.sk_conv.msk_half, sd.sk_conv.m_sk
+    alphas = [half - 1, half, half + 1, 0, msk - 1]
+    xq, xb = _scaledown_at(port, lvl, alphas, seed=5)
+    sk = sd.sk_conv
+    xt_q = shoup_mul(behz.scale_plain(xq, sd.q, True), *sd.t_sh_q, sd.q.p_d)
+    xt_b = shoup_mul(behz.scale_plain(xb, sd.bsk, True), *sd.t_sh_bsk, sd.bsk.p_d)
+    y_b = shoup_mul(sub_mod(xt_b, sd.conv(xt_q), sd.bsk.p_d), *sd.qinv_sh_bsk, sd.bsk.p_d)
+    diff = sub_mod(sk.conv_b_to_sk(y_b[:, :-1]), y_b[:, -1:], sk.msk_d)
+    got_alpha = shoup_mul(diff, *sk.prodB_inv_sk_sh, sk.msk_d)
+    assert got_alpha[:, 0].tolist() == [[a] * port.n for a in alphas]
+    want = _jit(_ref_scaledown(ref, lvl, 0), to_u32(xq), to_u32(xb))
+    assert _eq(want, behz.scaledown_plain(xq, xb, sd))
+
+
+# ---------------------------------------------------------------------------
+# G4
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", SETS)
+@pytest.mark.parametrize("fill", FILLS)
+def test_keyswitch_div_matches_reference(name, fill):
+    """(c0, c1) + round(from_mont(u) / P) at the top level and level 1,
+    the ciphertext a 3-component tensor."""
+    ref, port = ctxs(name)
+    for lvl in sorted({1, port.q.k}):
+        rqp, rdiv, rq = ref._qp_level(lvl), ref._div_p_level(lvl), ref.levels[lvl]
+        u = _residues((2, 2, lvl + 1, port.n), rqp.primes, lvl, fill)
+        data = _residues((2, 3, lvl, port.n), port.q_primes[:lvl], lvl + 1, fill)
+
+        def ref_new(uu, dd):
+            v = rqp.from_mont(uu)
+            return rmod.add_mod(dd[..., :2, :, :], rdiv(v[..., :lvl, :], v[..., lvl:, :]),
+                                rq.p_d)
+
+        got = behz.keyswitch_div_plain(_t(u), _t(data), port._qp_level(lvl),
+                                       port._div_p_level(lvl))
+        assert _eq(_jit(ref_new, u, data), got)
+
+
+@pytest.mark.parametrize("name", SETS)
+@pytest.mark.parametrize("fill", FILLS)
+def test_mod_switch_matches_reference(name, fill):
+    """The rounded drops from every level to every lower one against the
+    reference's ``mod_switch_to``."""
+    ref, port = ctxs(name)
+    for top in range(2, port.q.k + 1):
+        x = _residues((2, 2, top, port.n), port.q_primes[:top], top, fill)
+        for target in range(1, top):
+            want = ref.mod_switch_to(RefCt(jnp.asarray(x), is_ntt=False, level=top), target)
+            got = behz.mod_switch_plain(_t(x), port.div_drop, top, target)
+            assert _eq(want.data, got)
+
+
+# behz._rows: where G1 and G4 find each row of an operand on the card
+# (csrc/behz.cuh's Rows); [4, 5, 2, 3, 8] stands for [rows, nh+1, comp, L, N]
+ROW_VIEWS = {
+    "contiguous": lambda b: b,
+    "middle slice": lambda b: b[:, 1:],                          # the PS inner[:, 1:]
+    "bundle blocks": lambda b: b[:, 1:].reshape(2, 2, 4, 2, 3, 8),   # its cpb > 1 form
+    "broadcast": lambda b: b[:1].expand(3, 5, 2, 3, 8),
+    "one row": lambda b: b[:1, :1, :1],
+    "three runs": lambda b: b[:, 1::2],
+}
+
+
+@pytest.mark.parametrize("view", ROW_VIEWS)
+def test_rows_address_views_in_place(view):
+    """Each row r of a view's leading axes starts (r // inner) * outer +
+    (r % inner) * stride past its first element; a view whose leading axes
+    form at most two runs of uniform stride is read in place, one of three
+    runs is copied."""
+    x = ROW_VIEWS[view](torch.arange(4 * 5 * 2 * 3 * 8, dtype=torch.int32).reshape(4, 5, 2, 3, 8))
+    y, rows, (inner, stride, outer) = behz._rows(x, 2)
+    assert torch.equal(y, x) and rows == x[..., 0, 0].numel()
+    assert (y.data_ptr() == x.data_ptr()) == (view != "three runs")
+    want = y.reshape(rows, 3, 8)
+    for r in range(rows):
+        off = y.storage_offset() + (r // inner) * outer + (r % inner) * stride
+        assert torch.equal(y.as_strided((3, 8), y.stride()[-2:], off), want[r])

@@ -9,14 +9,14 @@ import numpy as np
 import pytest
 import torch
 
-from apsu_tpu_torch.core.bfv import BfvContext
+from apsu_tpu_torch.core.bfv import BfvContext, Ciphertext
 from apsu_tpu_torch.core.nt import gen_ntt_primes
 from apsu_tpu_torch.core.ntt import NttContext
 from apsu_tpu_torch.core.params import PSUParams
 from apsu_tpu_torch.core.rns import RnsBase
 from apsu_tpu_torch.device import canonical
 from apsu_tpu_torch.ops import ntt as ntt_op
-from apsu_tpu_torch.ops import polyeval, roofline
+from apsu_tpu_torch.ops import behz, polyeval, roofline
 
 
 def _need_cuda():
@@ -407,6 +407,165 @@ def test_sharded_receiver_across_cards_matches_direct(name):
     assert torch.equal(got.results, want.results)
 
 
+# the glue kernels G1-G4 (ops/behz.py): a parameter set's contexts on the
+# card, each kernel against its plain version on the same CUDA tensors; every
+# level and the widened Bsk of a multiply-sum, residues random, all p - 1 and
+# all 0; "ps" is SHARD_SETS' (9 q limbs, 12 Bsk limbs: the kernels' largest)
+GLUE_SETS = ["256K-2048-com", "1M-2048-cmp", "16M-4096", "256M-1", "ps"]
+FILLS = [None, "p-1", "zero"]
+
+
+def _glue_ctx(name):
+    _need_cuda()
+    params = (PSUParams.from_dict(SHARD_SETS[name]) if name in SHARD_SETS
+              else PSUParams.load_file(f"parameters/{name}.json"))
+    return BfvContext(params.seal_params, "cuda")
+
+
+def _glue_residues(shape, primes, seed, fill):
+    x = _residues(shape, primes, "cuda", seed, fill=None if fill == "zero" else fill)
+    return torch.zeros_like(x) if fill == "zero" else x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GLUE_SETS)
+@pytest.mark.parametrize("fill", FILLS)
+def test_behz_lift_kernel_matches_plain(name, fill):
+    """G1 in its three modes: the lift (both forms, and the Bsk form alone,
+    from strided views: one run of rows, two read in place, three copied),
+    to_mont / from_mont of every base, the digits."""
+    bfv = _glue_ctx(name)
+    for lvl in range(2, bfv.q.k + 1):
+        for extra in (0, 5):
+            mc = bfv._mul_ctx(lvl, extra)
+            q, bsk = bfv.levels[lvl], mc["bsk"]
+            full = _glue_residues((2, 3, 3, q.k, q.n), q.primes, lvl, fill)
+            for x in (full, full[:, :, 2], full[:, 1:], full[:, ::2, 1:]):
+                for want_q in (True, False):
+                    got = behz.lift_cuda(x, mc["lift"], want_q)
+                    want = behz.lift_plain(x, mc["lift"], want_q)
+                    assert torch.equal(got[1], want[1])
+                    assert (got[0] is None) == (not want_q)
+                    if want_q:
+                        assert torch.equal(got[0], want[0])
+            for base in (q, bsk):
+                y = _glue_residues((3, base.k, base.n), base.primes, base.k, fill)
+                for inverse in (False, True):
+                    assert torch.equal(behz.scale_cuda(y, base, inverse),
+                                       behz.scale_plain(y, base, inverse))
+        if bfv.special is not None:
+            qp = bfv._qp_level(lvl)
+            c2 = _glue_residues((3, 3, lvl, bfv.n), bfv.q_primes[:lvl], lvl, fill)[:, 2]
+            assert torch.equal(behz.digits_cuda(c2, qp, lvl), behz.digits_plain(c2, qp, lvl))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GLUE_SETS)
+@pytest.mark.parametrize("fill", FILLS)
+def test_mont_mac_kernel_matches_plain(name, fill):
+    """G2's tensor mode at one term (the power wavefront) and at M = 1 and
+    11 with the rhs broadcast over a bundle's caches (the PS outer sum), in
+    q and in the widened Bsk; its key-switch mode at every level below and
+    at the key's.  Term axes that differ, neither of them 1, are refused."""
+    bfv = _glue_ctx(name)
+    lvl = bfv.q.k
+    for M in (1, 11):
+        mc = bfv._mul_ctx(lvl, max(1, (M - 1).bit_length()))
+        for base in (bfv.levels[lvl], mc["bsk"]):
+            a = _glue_residues((2, 3, M, 2, base.k, base.n), base.primes, M, fill)
+            b = _glue_residues((2, 1, M, 2, base.k, base.n), base.primes, M + 1, fill)
+            for fa, fb in ((a, b), (a[:, 1], b[:, 0]), (a[0, :, :1], b[0, 0, :1][None]),
+                           (a[:, :, 0][..., None, :, :, :], a[:, :, -1][..., None, :, :, :])):
+                assert torch.equal(behz.mont_mac_cuda(fa, fb, base),
+                                   behz.mont_mac_plain(fa, fb, base))
+            if M > 1:
+                with pytest.raises(ValueError, match="term axes"):
+                    behz.mont_mac_cuda(a[..., :3, :, :, :], b[..., :5, :, :, :], base)
+    if bfv.special is None:
+        return
+    for lvl in range(1, bfv.q.k + 1):
+        qp, klvl = bfv._qp_level(lvl), bfv.q.k
+        ksk = _glue_residues((klvl, 2, klvl + 1, bfv.n), bfv.q_primes + [bfv.special], 7, fill)
+        d = _glue_residues((lvl, 3, lvl + 1, bfv.n), qp.primes, lvl, fill)
+        assert torch.equal(behz.keyswitch_mac_cuda(d, ksk, qp, lvl, klvl),
+                           behz.keyswitch_mac_plain(d, ksk, qp, lvl, klvl))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GLUE_SETS)
+@pytest.mark.parametrize("fill", FILLS)
+def test_behz_scaledown_kernel_matches_plain(name, fill):
+    """G3 at every level, with the multiply's Bsk and the widened one."""
+    bfv = _glue_ctx(name)
+    for lvl in range(1, bfv.q.k + 1):
+        for extra in (0, 5):
+            mc = bfv._mul_ctx(lvl, extra)
+            q, bsk = bfv.levels[lvl], mc["bsk"]
+            x_q = _glue_residues((2, 3, q.k, q.n), q.primes, lvl, fill)
+            x_b = _glue_residues((2, 3, bsk.k, q.n), bsk.primes, lvl + 1, fill)
+            assert torch.equal(behz.scaledown_cuda(x_q, x_b, mc["scale"]),
+                               behz.scaledown_plain(x_q, x_b, mc["scale"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GLUE_SETS)
+@pytest.mark.parametrize("fill", FILLS)
+def test_rns_divround_kernel_matches_plain(name, fill):
+    """G4: the mod-switch from every level to every lower one, on a
+    contiguous tensor and on a view; the key-switch mod-down at every level,
+    with the ciphertext a 3-component view, its rows contiguous or a slice
+    of a middle axis."""
+    bfv = _glue_ctx(name)
+    for top in range(2, bfv.q.k + 1):
+        x = _glue_residues((2, 3, top, bfv.n), bfv.q_primes[:top], top, fill)
+        for target in range(1, top):
+            for v in (x, x[:, 1:]):
+                assert torch.equal(behz.mod_switch_cuda(v, bfv.div_drop, top, target),
+                                   behz.mod_switch_plain(v, bfv.div_drop, top, target))
+    if bfv.special is None:
+        return
+    for lvl in range(1, bfv.q.k + 1):
+        qp, div = bfv._qp_level(lvl), bfv._div_p_level(lvl)
+        u = _glue_residues((2, 3, 2, lvl + 1, bfv.n), qp.primes, lvl, fill)
+        data = _glue_residues((2, 3, 3, lvl, bfv.n), bfv.q_primes[:lvl], lvl + 1, fill)
+        for uv, dv in ((u, data), (u[:, 1:], data[:, 1:])):
+            assert torch.equal(behz.keyswitch_div_cuda(uv, dv, qp, div),
+                               behz.keyswitch_div_plain(uv, dv, qp, div))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["256K-2048-com", "16M-4096"])
+def test_glue_on_the_card_matches_the_cpu(name):
+    """multiply -> relinearize -> mod_switch_to and multiply_sum on the card
+    (G1-G4 between K1's transforms) against the same calls on the CPU (the
+    plain versions), bit for bit, and the card launches every glue kernel."""
+    _need_cuda()
+    sp = PSUParams.load_file(f"parameters/{name}.json").seal_params
+    ctxs = {dev: BfvContext(sp, dev) for dev in ("cpu", "cuda")}
+    outs = {}
+    for dev, bfv in ctxs.items():
+        rng = np.random.default_rng(5)
+        sk = bfv.gen_secret_key(rng)
+        rk = bfv.gen_relin_key(sk, rng)
+        slots = np.random.default_rng(6).integers(0, bfv.t, size=(3, 2, bfv.n), dtype=np.uint64)
+        ct = bfv.encrypt_symmetric(bfv.encode(slots.astype(np.uint32)), sk, rng)
+        before = [behz.lift_launches, behz.mac_launches, behz.scaledown_launches,
+                  behz.divround_launches]
+        prod = bfv.multiply(Ciphertext(ct.data[0], False, ct.level),
+                            Ciphertext(ct.data[1], False, ct.level))
+        rel = bfv.relinearize(prod, rk)
+        sw = bfv.mod_switch_to(rel, 1)
+        msum = bfv.multiply_sum(Ciphertext(ct.data[:2], False, ct.level),
+                                Ciphertext(ct.data[1:], False, ct.level))
+        after = [behz.lift_launches, behz.mac_launches, behz.scaledown_launches,
+                 behz.divround_launches]
+        outs[dev] = [t.cpu() for t in (prod.data, rel.data, sw.data, msum.data)]
+        if dev == "cuda":
+            assert all(a > b for a, b in zip(after, before))
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert torch.equal(got, want)
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     primes = gen_ntt_primes([28], 2 * 1024)
     tb = NttContext(primes, 1024, "cpu")
@@ -421,6 +580,36 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     cache = _residues((1, 2, 8, 1, 1024), primes, "cpu", seed=4)
     with pytest.raises(ValueError, match="CUDA"):
         polyeval.eval_dot_cuda(powers, cache, RnsBase(primes, 1024, "cpu"))
+
+
+def test_glue_kernel_wrappers_refuse_cpu_tensors():
+    """G1-G4's CUDA wrappers raise on CPU tensors of the right shapes."""
+    bfv = BfvContext(PSUParams.load_file("parameters/256K-2048-com.json").seal_params, "cpu")
+    lvl = bfv.q.k
+    mc = bfv._mul_ctx(lvl)
+    q, bsk, qp = bfv.q, mc["bsk"], bfv._qp_level(lvl)
+    x = _residues((2, q.k, q.n), q.primes, "cpu", seed=0)
+    fa = _residues((2, 1, 2, q.k, q.n), q.primes, "cpu", seed=1)
+    cases = [
+        lambda: behz.lift_cuda(x, mc["lift"]),
+        lambda: behz.scale_cuda(x, q),
+        lambda: behz.digits_cuda(x, qp, lvl),
+        lambda: behz.mont_mac_cuda(fa, fa, q),
+        lambda: behz.keyswitch_mac_cuda(
+            _residues((lvl, 2, qp.k, q.n), qp.primes, "cpu", seed=2), bfv.gen_relin_key(
+                bfv.gen_secret_key(np.random.default_rng(0)), np.random.default_rng(1)).ksk,
+            qp, lvl, lvl),
+        lambda: behz.scaledown_cuda(_residues((3, q.k, q.n), q.primes, "cpu", seed=3),
+                                    _residues((3, bsk.k, q.n), bsk.primes, "cpu", seed=4),
+                                    mc["scale"]),
+        lambda: behz.keyswitch_div_cuda(
+            _residues((2, 2, qp.k, q.n), qp.primes, "cpu", seed=5),
+            _residues((2, 3, q.k, q.n), q.primes, "cpu", seed=6), qp, bfv._div_p_level(lvl)),
+        lambda: behz.mod_switch_cuda(x, bfv.div_drop, lvl, 1),
+    ]
+    for case in cases:
+        with pytest.raises(ValueError, match="CUDA"):
+            case()
 
 
 def test_entry_points_refuse_missing_cuda():
