@@ -48,14 +48,18 @@ R32 = 1 << 32
 LIFT_LAYOUT = (("q", (MAXQ,)), ("qm", (MAXQ,)), ("qm_sh", (MAXQ,)), ("c", (MAXQ,)),
                ("c_sh", (MAXQ,)), ("phat_mt", (MAXQ,)), ("q_inv_mt", (1,)), ("b", (MAXB,)),
                ("m", (MAXQ, MAXB)), ("m_sh", (MAXQ, MAXB)), ("a", (MAXB,)), ("a_sh", (MAXB,)),
-               ("k", (MAXB,)), ("k_sh", (MAXB,)))
+               ("k", (MAXB,)), ("k_sh", (MAXB,)), ("ma", (MAXQ, MAXB)), ("kn", (MAXB,)),
+               ("b32", (MAXB,)), ("b32_sh", (MAXB,)), ("b_one_sh", (MAXB,)))
 MOD_LAYOUT = (("p", (MAXL,)), ("pni", (MAXL,)))
 SCALE_LAYOUT = (("q", (MAXQ,)), ("yq", (MAXQ,)), ("yq_sh", (MAXQ,)), ("b", (MAXB,)),
                 ("xb", (MAXB,)), ("xb_sh", (MAXB,)), ("m", (MAXQ, MAXB)), ("m_sh", (MAXQ, MAXB)),
                 ("qinv", (MAXB,)), ("qinv_sh", (MAXB,)), ("zb", (MAXB,)), ("zb_sh", (MAXB,)),
                 ("mb", (MAXB, MAXQ)), ("mb_sh", (MAXB, MAXQ)), ("msk_b", (MAXB,)),
                 ("msk_b_sh", (MAXB,)), ("pbinv", (1,)), ("pbinv_sh", (1,)), ("msk_half", (1,)),
-                ("pbq", (MAXQ,)), ("pbq_sh", (MAXQ,)))
+                ("pbq", (MAXQ,)), ("pbq_sh", (MAXQ,)), ("wx", (MAXB,)), ("wy", (MAXQ, MAXB)),
+                ("ak", (MAXB,)), ("npbq", (MAXQ,)), ("q32", (MAXQ,)), ("q32_sh", (MAXQ,)),
+                ("q_one_sh", (MAXQ,)), ("b32", (MAXB,)), ("b32_sh", (MAXB,)),
+                ("b_one_sh", (MAXB,)))
 DIV_LAYOUT = (("q", (MAXQ,)), ("rinv", (MAXQ,)), ("rinv_sh", (MAXQ,)), ("one_sh", (MAXQ,)),
               ("half", (MAXQ,)), ("half_q", (MAXQ, MAXQ)), ("dinv", (MAXQ, MAXQ)),
               ("dinv_sh", (MAXQ, MAXQ)))
@@ -87,6 +91,14 @@ def _shoup_fields(name, consts, primes) -> dict:
     """Table fields ``name`` (c mod p) and ``name_sh`` (⌊c·2^32/p⌋) per limb."""
     c = np.array([int(v) % int(p) for v, p in zip(consts, primes)], dtype=np.uint32)
     return {name: c, name + "_sh": shoup_pair(c, np.array(primes, dtype=np.uint32))}
+
+
+def _reduce_fields(name, primes) -> dict:
+    """Table fields of ``behz.cuh``'s reduce64 per limb: ``name``32 (2^32 mod
+    p), ``name``32_sh and ``name``_one_sh (⌊2^32/p⌋)."""
+    one = shoup_pair(np.ones(len(primes), np.uint32), np.array(primes, dtype=np.uint32))
+    return {**_shoup_fields(name + "32", [R32 % p for p in primes], primes),
+            name + "_one_sh": one}
 
 
 def shoup_cols(consts, primes, device):
@@ -230,17 +242,23 @@ class ExactLiftConv:
     def table(self) -> np.ndarray:
         """G1's: src's to_mont for the q output, and the lift with dst's R
         folded into its two last constants (the output is dst.to_mont of
-        the lift)."""
+        the lift).  The first design (``csrc/compare/glue_pr12_lift.cu``)
+        reads ``m`` then ``a`` and ``k``; the kernel's one lazy sum a limb
+        reads ``ma`` (``m`` times ``a``), ``k`` and ``kn`` (−``k``) and
+        reduce64's constants."""
         src, dst, mt = self.src, self.dst, 1 << 16
         qs, bs, Q = src.primes, dst.primes, src.prod
         m = np.array([[ph % d for d in bs] for ph in src.phat], dtype=np.uint32)
+        a = [pow(mt, -1, d) * R32 % d for d in bs]
+        k = [Q % d * pow(mt, -1, d) * R32 % d for d in bs]
         return pack_table(
             LIFT_LAYOUT, q=qs, phat_mt=self.phat_mod_mt, q_inv_mt=[self.q_inv_mt], b=bs, m=m,
             m_sh=shoup_pair(m, np.array(bs, np.uint32)[None, :]),
             **_shoup_fields("qm", [R32 % p for p in qs], qs),
             **_shoup_fields("c", [mt * inv % p for inv, p in zip(src.phat_inv, qs)], qs),
-            **_shoup_fields("a", [pow(mt, -1, d) * R32 % d for d in bs], bs),
-            **_shoup_fields("k", [Q % d * pow(mt, -1, d) * R32 % d for d in bs], bs))
+            ma=[[ph % d * a_j % d for d, a_j in zip(bs, a)] for ph in src.phat],
+            kn=[(d - k_j) % d for d, k_j in zip(bs, k)],
+            **_shoup_fields("a", a, bs), **_shoup_fields("k", k, bs), **_reduce_fields("b", bs))
 
     def __call__(self, x):
         """x: [..., ks, N] plain residues mod src -> [..., kd, N] plain
@@ -322,10 +340,20 @@ class ScaleDown:
 
     @functools.cached_property
     def table(self) -> np.ndarray:
+        """G3's: the first design (``csrc/compare/glue_pr12_scaledown.cu``)
+        reads the fields up to ``pbq_sh``; the kernel takes one lazy sum for
+        each output, whose constants fold the steps between: w_j = x_b,j·wx_j
+        + Σ_i y_i·wy_ij is z_j (j below m_sk, the fast floor times
+        B̂_j^{-1}) or y_sk, α = Σ_j w_j·ak_j, and out_i = Σ_j z_j·mb_ji +
+        |α|·(pbq_i or npbq_i)."""
         q, bsk, sk, t = self.q, self.bsk, self.sk_conv, self.t
         qs, bs, B, msk = q.primes, bsk.primes, sk.B, sk.m_sk
         m = np.array([[ph % d for d in bs] for ph in q.phat], dtype=np.uint32)
         mb = np.array([[ph % p for p in qs] for ph in B.phat], dtype=np.uint32)
+        # Q^{-1} (times B̂_j^{-1} below m_sk) mod b_j, and prod(B)^{-1} mod m_sk
+        f = [pow(q.prod % d, -1, d) * (inv if j < B.k else 1) % d
+             for j, (d, inv) in enumerate(zip(bs, B.phat_inv + [1]))]
+        pbinv = pow(B.prod % msk, -1, msk)
         return pack_table(
             SCALE_LAYOUT, q=qs, b=bs, m=m, m_sh=shoup_pair(m, np.array(bs, np.uint32)[None, :]),
             mb=mb, mb_sh=shoup_pair(mb, np.array(qs, np.uint32)[None, :]),
@@ -337,7 +365,12 @@ class ScaleDown:
             **_shoup_fields("zb", B.phat_inv, B.primes),
             **_shoup_fields("msk_b", [ph % msk for ph in B.phat], [msk] * B.k),
             **_shoup_fields("pbinv", [pow(B.prod % msk, -1, msk)], [msk]),
-            **_shoup_fields("pbq", [B.prod % p for p in qs], qs))
+            **_shoup_fields("pbq", [B.prod % p for p in qs], qs),
+            wx=[t * pow(R32, -1, d) * f_j % d for d, f_j in zip(bs, f)],
+            wy=[[(-ph) * f_j % d for d, f_j in zip(bs, f)] for ph in q.phat],
+            ak=[ph % msk * pbinv % msk for ph in B.phat] + [-pbinv % msk],
+            npbq=[-B.prod % p for p in qs], **_reduce_fields("q", qs),
+            **_reduce_fields("b", bs))
 
     def __call__(self, x_q, x_b):
         """x_q [..., kq, N], x_b [..., kb, N] plain -> [..., kq, N] plain."""

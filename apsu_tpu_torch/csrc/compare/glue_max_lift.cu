@@ -1,10 +1,10 @@
-// Comparison variant of G1 (../behz_lift.cu): every lift and digits launch
-// on the build whose q loops are unrolled to behz.cuh's MAXQ, without the
-// second build at SMALL_Q that the package takes when the limb counts fit.
-// Any other launch goes to the package's entry, renamed here.
+// Comparison variant of G1's first design (glue_pr12_lift.cu): every lift
+// and digits launch on the build whose q loops are unrolled to behz.cuh's
+// MAXQ, without the second build at SMALL_Q that the first design took when
+// the limb counts fit.  Any other launch goes to its entry, renamed here.
 
 #define apsu_behz_lift apsu_behz_lift_package
-#include "../behz_lift.cu"
+#include "glue_pr12_lift.cu"
 #undef apsu_behz_lift
 
 extern "C" int apsu_behz_lift(const void* x, long long x_inner, long long x_stride,

@@ -1,10 +1,10 @@
-// Comparison variant of G3 (../behz_scaledown.cu): every launch on the
-// build whose q loops are unrolled to behz.cuh's MAXQ, without the second
-// build at SMALL_Q that the package takes when the limb counts fit.  Any
-// call it does not take goes to the package's entry, renamed here.
+// Comparison variant of G3's first design (glue_pr12_scaledown.cu): every
+// launch on the build whose q loops are unrolled to behz.cuh's MAXQ, without
+// the second build at SMALL_Q that the first design took when the limb
+// counts fit.  Any call it does not take goes to its entry, renamed here.
 
 #define apsu_behz_scaledown apsu_behz_scaledown_package
-#include "../behz_scaledown.cu"
+#include "glue_pr12_scaledown.cu"
 #undef apsu_behz_scaledown
 
 extern "C" int apsu_behz_scaledown(const void* xq, const void* xb, void* out, long long rows,

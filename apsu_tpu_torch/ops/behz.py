@@ -22,20 +22,27 @@ stretches; the NTTs between them stay kernel 1's.
 - G4 ``keyswitch_div`` (from_mont, ÷ P rounded, + c0, c1) and ``mod_switch``
   (the rounded drops from level l to r, one limb at a time in registers).
 
+G3 and G1's lift are built for each (q limbs, Bsk limbs) pair of
+``exact_pairs()`` with loops of exactly that length and lazy 64-bit sums, and
+once more for any other pair (the general build, whose launches are also
+counted on their own: no parameter file reaches it).
+
 Every value is a canonical residue, so each kernel equals its plain version
 bit for bit whatever order it sums in.  A wrapper launches its kernel for a
 CUDA tensor and runs the plain version only for a CPU tensor: there is no
 fallback.  Each kernel is bound by device-memory bytes (each input read once,
-each output written once) with its integer work below that at the paths'
-shapes; one thread per coefficient lane holds every limb in registers and
-loads along N are coalesced.  The constant tables come from ``core/rns.py``
+each output written once), G3 by its multiplies about as much; one thread
+per coefficient lane holds every limb in registers and loads along N are
+coalesced.  The constant tables come from ``core/rns.py``
 (``RnsBase.to_mont_table``, ``ExactLiftConv.table``, ``ScaleDown.table``,
 ``ExactDiv.table``, ``RnsBase.mod_table``) and go to each kernel by value.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import re
 
 import torch
 
@@ -48,12 +55,24 @@ lift_launches = 0        # G1
 mac_launches = 0         # G2
 scaledown_launches = 0   # G3
 divround_launches = 0    # G4
+# of those, the launches of G1's lift and of G3 on their general builds
+lift_general_launches = 0
+scaledown_general_launches = 0
 
 # the kernels' limits (csrc/behz.cuh): q (or Q·P) limbs, Bsk limbs, limbs of
 # any one base
 MAXQ, MAXB, MAXL = 10, 12, 12
 _LIFT, _DIGITS, _SCALE = 0, 1, 2
 _TENSOR, _KEYSWITCH = 0, 1
+
+
+@functools.cache
+def exact_pairs() -> frozenset:
+    """The (q limbs, Bsk limbs) pairs that G3 and G1's lift are built for
+    exactly: ``BEHZ_EXACT_PAIRS`` of ``csrc/behz.cuh``, the one list of them."""
+    text = (_build.CSRC / "behz.cuh").read_text()
+    body = re.search(r"#define BEHZ_EXACT_PAIRS\(X\)((?:.*\\\n)*.*)", text).group(1)
+    return frozenset((int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", body))
 
 
 def _check(x: torch.Tensor, name: str) -> None:
@@ -127,7 +146,7 @@ def digits_plain(c2, qp, k: int):
 
 
 def _g1(x, table, out_q_limbs, out_b_shape, rows_shape, mode, lq, lb):
-    global lift_launches
+    global lift_launches, lift_general_launches
     _check(x, "behz_lift")
     n = x.shape[-1]
     x, rows, xw = _rows(x, 2)
@@ -135,11 +154,14 @@ def _g1(x, table, out_q_limbs, out_b_shape, rows_shape, mode, lq, lb):
     out_q = (torch.empty(rows_shape + (out_q_limbs, n), dtype=I32, device=x.device)
              if out_q_limbs else None)
     if rows:
-        lift_launches += _launch(
+        launched = _launch(
             "behz_lift", _build.lib().apsu_behz_lift, x, x.data_ptr(), *xw, x.stride(-2),
             out_q.data_ptr() if out_q is not None else None,
             out_b.data_ptr() if out_b is not None else None, rows, n, lq, lb, mode,
             table.ctypes.data)
+        lift_launches += launched
+        if mode == _LIFT and (lq, lb) not in exact_pairs():
+            lift_general_launches += launched
     return out_q, out_b
 
 
@@ -353,7 +375,7 @@ def scaledown(x_q, x_b, sd):
 
 
 def scaledown_cuda(x_q, x_b, sd):
-    global scaledown_launches
+    global scaledown_launches, scaledown_general_launches
     q, bsk = sd.q, sd.bsk
     _check(x_q, "behz_scaledown")
     _check(x_b, "behz_scaledown")
@@ -367,9 +389,12 @@ def scaledown_cuda(x_q, x_b, sd):
     out = torch.empty_like(x_q)
     rows = x_q.numel() // (q.k * q.n)
     if rows:
-        scaledown_launches += _launch(
+        launched = _launch(
             "behz_scaledown", _build.lib().apsu_behz_scaledown, x_q, x_q.data_ptr(),
             x_b.data_ptr(), out.data_ptr(), rows, q.n, q.k, bsk.k, sd.table.ctypes.data)
+        scaledown_launches += launched
+        if (q.k, bsk.k) not in exact_pairs():
+            scaledown_general_launches += launched
     return out
 
 

@@ -44,11 +44,13 @@ Phases, each printing one JSON object per line:
    PS query launched them with, and their per-query device time and bound;
    the glue kernels G1-G4 (``ops/behz.py``) at every call of that query, on
    the inputs it gave them, each distinct call then timed by graph replay
-   beside its byte bound and the measured stream's ceiling (phases 6, 7,
-   11, 12 and 14 do the same for their warm or recorded queries; phases 4,
-   6, 11 and 12 fail if a glue kernel never launched); each call's inputs
-   are copied with their own strides, so what is checked and timed is the
-   layout the query passed;
+   beside its bound and the measured ceilings (phases 6, 7, 11, 12 and 14
+   do the same for their warm or recorded queries; phases 4, 6, 11 and 12
+   fail if a glue kernel never launched, and every such check fails if G3
+   or the lift took its general build); each call's inputs are copied with
+   their own strides, so what is checked and timed is the layout the query
+   passed; phase 1 reports each build of G3 and the lift with its registers
+   and spills (``glue_builds``);
 6. the in-process PSU at full width on 1M-2048-cmp: 2^20 receiver items
    through ``ReceiverDB.set_data`` (cache [5, 15, 80, 2, 4096] on the card),
    a 2048-item ``Sender`` query of which 1024 items are in the DB, and
@@ -145,8 +147,8 @@ Phases, each printing one JSON object per line:
    of their own, in turns with this checkout's (``compare_roofline``,
    ``launch_split``); with ``--compare-glue``, each given G1-G4 source
    (``csrc/compare/glue_*.cu``) built alone, checked and timed in turns
-   with the package's kernels at every G call of phase 5's warm query
-   (``compare_glue``);
+   with the package's kernels at every G call of phase 5's and phase 6's
+   warm queries (``compare_glue``);
 16. the ``kernels`` summary line (K1-K3, K9, K10, then G1-G4 with their
    launches on the in-process paths), then ``{"ok": true, "device": ...}``.
 With ``--profile``, one warm query of phases 5, 6, 7 and 14 runs under
@@ -518,6 +520,15 @@ GLUE_KERNELS = (
 GLUE_WRAPPERS = tuple(w for *_, ws in GLUE_KERNELS for w in ws)
 
 
+# G3's and G1's lift's launches on their general builds (ops/behz.py), which
+# no protocol path takes: each glue_check line reads them and raises if not 0
+GENERAL_COUNTERS = {"behz_lift": "lift_general_launches",
+                    "behz_scaledown": "scaledown_general_launches"}
+# the registers and spilled bytes of each build of G3 and the lift, from the
+# package build's ptxas report (phase 1, ``glue_builds``)
+GLUE_BUILDS: dict = {}
+
+
 def glue_launches() -> dict:
     """G1-G4's launch counts, by kernel name."""
     from apsu_tpu_torch.ops import behz
@@ -525,17 +536,69 @@ def glue_launches() -> dict:
     return {name: getattr(behz, counter) for name, _, _, counter, _ in GLUE_KERNELS}
 
 
+def general_launches() -> dict:
+    """G3's and the lift's launches on their general builds, by kernel name."""
+    from apsu_tpu_torch.ops import behz
+
+    return {name: getattr(behz, counter) for name, counter in GENERAL_COUNTERS.items()}
+
+
 def reset_glue_launches() -> None:
     from apsu_tpu_torch.ops import behz
 
-    for _, _, _, counter, _ in GLUE_KERNELS:
+    for counter in [c for _, _, _, c, _ in GLUE_KERNELS] + list(GENERAL_COUNTERS.values()):
         setattr(behz, counter, 0)
 
 
+def glue_builds(log: str) -> dict:
+    """The registers and spilled bytes of each build of G3 and G1's lift in a
+    ``-Xptxas -v`` log: {kernel: {"LqxLb" or "general": {...}}}."""
+    out = {}
+    for chunk in log.split("Compiling entry function")[1:]:
+        m = re.search(r"(behz_scaledown_kernel|behz_lift_kernel)ILi(\d+)ELi(\d+)ELb([01])E",
+                      chunk)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        if not m or not regs:
+            continue
+        name = m.group(1)[: -len("_kernel")]
+        build = f"{m.group(2)}x{m.group(3)}" if m.group(4) == "1" else "general"
+        out.setdefault(name, {})[build] = {
+            "registers": int(regs.group(1)),
+            "spill_bytes": sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", chunk))}
+    return out
+
+
+def glue_build_of(wrapper, args):
+    """(kernel, build) of a G3 or lift call, as ``glue_builds`` names it, or
+    None for another call."""
+    from apsu_tpu_torch.ops import behz
+
+    if wrapper == "scaledown_cuda":
+        pair, name = (args[2].q.k, args[2].bsk.k), "behz_scaledown"
+    elif wrapper == "lift_cuda":
+        pair, name = (args[1].src.k, args[1].dst.k), "behz_lift"
+    else:
+        return None
+    return name, (f"{pair[0]}x{pair[1]}" if pair in behz.exact_pairs() else "general")
+
+
 def glue_work(name, args, out):
-    """Bytes (each input read once, each output written once) and 32-bit
-    multiplies of one glue call: a Shoup product is 3, a Montgomery product
-    4 (csrc/behz.cuh)."""
+    """Bytes (each input read once, each output written once), products and
+    32-bit multiplies of one glue call, as the kernels now compute it: a
+    Shoup product is 3 multiplies (as ``ntt_work`` counts), a Montgomery
+    product 4, a widening 32x32->64 product 2 (IMAD.WIDE.U32 runs at half
+    IMAD's rate, PERF.md section 6), a reduce64 of a lazy sum 5 (a Shoup
+    product and a product by 1, whose low multiply is free); G3's and the
+    lift's sums are counted term by term (csrc/behz_scaledown.cu,
+    behz_lift.cu).  A count left at the first design's arithmetic would
+    overstate the least time and could read above 100%.  The products are
+    the multiplies over 3, as Shoup products for ``shoup_lazy``'s measured
+    rate (``ceiling_ms``)."""
+    nbytes, mults = _glue_bytes_mults(name, args, out)
+    return nbytes, mults / 3, mults
+
+
+def _glue_bytes_mults(name, args, out):
     outs = [o for o in (out if isinstance(out, tuple) else (out,)) if o is not None]
     out_elems = sum(o.numel() for o in outs)
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
@@ -543,9 +606,12 @@ def glue_work(name, args, out):
     if name == "scale_cuda" or name == "digits_cuda":
         shoups = out_elems
     elif name == "lift_cuda":
+        # the q form and c_i (Shoup), r's 16-bit sum (lq + 1 multiplies),
+        # then Lb sums of Lq + 1 widening products and a reduce64 each
         x, conv, want_q = args
         lq, lb = conv.src.k, conv.dst.k
-        shoups = x.numel() // lq * ((lq if want_q else 0) + lq + lq * lb + 2 * lb)
+        per = 3 * lq * (2 if want_q else 1) + lq + 1 + 2 * lb * (lq + 1) + 5 * lb
+        return 4 * (in_elems + out_elems), x.numel() // lq * per
     elif name == "mont_mac_cuda":
         fa, fb, _ = args
         return 4 * (in_elems + out_elems), out_elems // 3 * 4 * max(fa.shape[-4],
@@ -555,10 +621,12 @@ def glue_work(name, args, out):
         key = lvl * 2 * qp.k * qp.n
         return 4 * (d.numel() + key + out_elems), out_elems // 2 * 2 * lvl * 4
     elif name == "scaledown_cuda":
+        # y_i (Shoup); Lb sums of Lq + 1 widening products and alpha's of Lb,
+        # Lq sums of Lb, each reduced once (reduce64)
         sd = args[2]
         lq, lb = sd.q.k, sd.bsk.k
-        shoups = out_elems // lq * (2 * lq + 2 * lb + lq * lb + 2 * (lb - 1) + 1
-                                    + lq * (lb - 1))
+        per = 3 * lq + 2 * lb * (lq + 1) + 2 * lb + 2 * lq * lb + 5 * (lb + 1 + lq)
+        return 4 * (in_elems + out_elems), out_elems // lq * per
     elif name == "keyswitch_div_cuda":
         u, data, _, div = args
         k = div.q.k
@@ -575,14 +643,22 @@ def check_glue_calls(calls, label, ceilings) -> dict:
     ``calls`` (one query's, each on the inputs it was given), then each
     distinct call (wrapper, shapes, strides, tables) timed by graph replay:
     for each kernel its launches, per-query device time, bound and ceiling
-    (its bytes at phase 3's measured stream, ``ceilings``) summed over the
-    calls, and its largest call's time, plain time, bound and ceiling."""
+    (its bytes at phase 3's measured stream or its products at
+    ``shoup_lazy``'s measured rate, the larger; ``ceilings``) summed over the
+    calls and by wrapper, and its largest call's time, plain time, bound and
+    ceiling; G3's and the lift's builds with their registers and spills.
+    The general builds' launches since the path's counters were reset (no
+    protocol path takes them) are read first and must be 0."""
     from apsu_tpu_torch.ops import behz
     from apsu_tpu_torch.tools import cuda_ms, graph_ms
 
+    general = general_launches()
+    if any(general.values()):
+        raise AssertionError(f"a general build launched ({label}): {general}")
     by_kernel = {name: {"launches": 0, "max_abs_err": 0, "device_ms_per_query": 0.0,
                         "bound_ms_per_query": 0.0, "ceiling_ms_per_query": 0.0,
-                        "by_wrapper": {}, "distinct": {}}
+                        "by_wrapper": {}, "ms_by_wrapper": {}, "builds": {},
+                        "general_launches": general.get(name, 0), "distinct": {}}
                  for name, *_ in GLUE_KERNELS}
     kernel_of = {w: name for name, *_, ws in GLUE_KERNELS for w in ws}
     for wrapper, args in calls:
@@ -597,6 +673,9 @@ def check_glue_calls(calls, label, ceilings) -> dict:
                 k["max_abs_err"] = max(k["max_abs_err"], max_abs_err(g, w))
         k["launches"] += 1
         k["by_wrapper"][wrapper] = k["by_wrapper"].get(wrapper, 0) + 1
+        build = glue_build_of(wrapper, args)
+        if build is not None:
+            k["builds"][build[1]] = GLUE_BUILDS.get(build[0], {}).get(build[1])
         key = (wrapper,) + tuple((tuple(a.shape), tuple(a.stride())) if isinstance(a, torch.Tensor)
                                  else id(a) for a in args)
         k["distinct"].setdefault(key, [wrapper, args, got, 0])[3] += 1
@@ -606,21 +685,28 @@ def check_glue_calls(calls, label, ceilings) -> dict:
         for wrapper, args, got, count in k.pop("distinct").values():
             fn = getattr(behz, wrapper)
             ms = graph_ms(lambda: fn(*args))
-            nbytes, mults = glue_work(wrapper, args, got)
+            work = glue_work(wrapper, args, got)
+            nbytes, _, mults = work
+            b_ms, c_ms = bound_ms(nbytes, mults)[0], ceiling_ms(work, ceilings, "shoup_lazy")[0]
             k["device_ms_per_query"] += ms * count
-            k["bound_ms_per_query"] += bound_ms(nbytes, mults)[0] * count
-            k["ceiling_ms_per_query"] += nbytes / ceilings["stream_bytes_per_s"] * 1e3 * count
-            if big is None or nbytes > big[3]:
-                big = (wrapper, args, ms, nbytes, mults)
+            k["bound_ms_per_query"] += b_ms * count
+            k["ceiling_ms_per_query"] += c_ms * count
+            sums = k["ms_by_wrapper"].setdefault(wrapper, {"device_ms": 0.0, "bound_ms": 0.0,
+                                                           "ceiling_ms": 0.0})
+            for key, v in (("device_ms", ms), ("bound_ms", b_ms), ("ceiling_ms", c_ms)):
+                sums[key] += v * count
+            if big is None or nbytes > big[3][0]:
+                big = (wrapper, args, ms, work)
         if big is not None:
-            wrapper, args, ms, nbytes, mults = big
+            wrapper, args, ms, work = big
             plain = getattr(behz, wrapper.replace("_cuda", "_plain"))
-            b_ms, b_by = bound_ms(nbytes, mults)
+            b_ms, b_by = bound_ms(work[0], work[2])
+            c_ms, c_by = ceiling_ms(work, ceilings, "shoup_lazy")
             k.update({"largest_wrapper": wrapper, "largest_ms": ms,
                       "largest_plain_ms": cuda_ms(lambda: plain(*args), reps=1),
                       "largest_bound_ms": b_ms, "largest_bound_by": b_by,
-                      "largest_bytes": nbytes, "largest_mults": mults,
-                      "largest_ceiling_ms": nbytes / ceilings["stream_bytes_per_s"] * 1e3,
+                      "largest_bytes": work[0], "largest_mults": work[2],
+                      "largest_ceiling_ms": c_ms, "largest_ceiling_by": c_by,
                       "largest_shapes": [list(a.shape) for a in args
                                          if isinstance(a, torch.Tensor)]})
         out[name] = k
@@ -628,14 +714,31 @@ def check_glue_calls(calls, label, ceilings) -> dict:
     return out
 
 
-def compare_glue(sources, calls) -> None:
+_GLUE_VARIANTS: list = []   # compare_glue's builds, made once a process
+
+
+def glue_sass(lib) -> dict:
+    """Static SASS of the G3 and lift builds that take 16M-4096's largest
+    calls ((Lq, Lb) = (6, 9) and (4, 7); the first design's SMALL_Q build)
+    in a library: all instructions, IMAD.WIDE and IMAD.HI, by kernel."""
+    out = {}
+    for f in sass_functions(lib, r"(scaledown|lift)\w*I(Li0E)?Li(6ELi9|4ELi7|8ELi12)E"):
+        ops = re.findall(r"^\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)",
+                         f, re.M)
+        out[f.split("\n", 1)[0].strip()] = {
+            "instructions": len(ops), "imad_wide": sum(o.startswith("IMAD.WIDE") for o in ops),
+            "imad_hi": sum(o.startswith("IMAD.HI") for o in ops)}
+    return out
+
+
+def compare_glue(sources, calls, label) -> None:
     """Each given glue source (a variant exporting one or more of G1-G4's C
-    entries, ``csrc/compare/glue_*.cu``), built alone, against the package's
-    kernels at every G call recorded in ``calls`` (phase 5's warm query) to
-    a kernel it exports: equal outputs, then each kernel's per-query device
-    time (each distinct call graph-replayed, times its count) and its
-    largest call's, read in turns with the package's build (A, B, B, A, five
-    trials; ``turns_summary``)."""
+    entries, ``csrc/compare/glue_*.cu``), built alone (once, at the first
+    call), against the package's kernels at every G call recorded in
+    ``calls`` (a warm query's, ``label``) to a kernel it exports: equal
+    outputs, then each kernel's per-query device time (each distinct call
+    graph-replayed, times its count) and its largest call's, read in turns
+    with the package's build (A, B, B, A, five trials; ``turns_summary``)."""
     import ctypes
 
     from apsu_tpu_torch.ops import _build, behz
@@ -657,15 +760,22 @@ def compare_glue(sources, calls) -> None:
         def __getattr__(self, entry):
             return self.over.get(entry) or getattr(real_lib, entry)
 
-    for src, so_path, log in build_alone(sources, "glue"):
-        so = ctypes.CDLL(str(so_path))
-        over = {}
-        for entry in entries.values():
-            if hasattr(so, entry):
-                f = getattr(so, entry)
-                f.argtypes, f.restype = getattr(real_lib, entry).argtypes, ctypes.c_int
-                over[entry] = f
-        emit({"compare_glue_build": str(src), **ptxas_stats(log), "entries": sorted(over)})
+    if not _GLUE_VARIANTS:
+        emit({"compare_glue_build": "package", "builds": GLUE_BUILDS,
+              "sass": glue_sass(_build.build())})
+        for src, so_path, log in build_alone(sources, "glue"):
+            so = ctypes.CDLL(str(so_path))
+            over = {}
+            for entry in entries.values():
+                if hasattr(so, entry):
+                    f = getattr(so, entry)
+                    f.argtypes, f.restype = getattr(real_lib, entry).argtypes, ctypes.c_int
+                    over[entry] = f
+            emit({"compare_glue_build": str(src), **ptxas_stats(log),
+                  "builds": glue_builds(log), "sass": glue_sass(so_path),
+                  "entries": sorted(over)})
+            _GLUE_VARIANTS.append((src, over))
+    for src, over in _GLUE_VARIANTS:
         variant = Lib(over)
 
         def on(lib, fn):
@@ -698,7 +808,8 @@ def compare_glue(sources, calls) -> None:
                 return on(lib, lambda: graph_ms(lambda: getattr(behz, big[0])(*big[1])))
 
             own = "package"
-            emit({"compare_glue": name, "source": str(src), "distinct_calls": len(mine),
+            emit({"compare_glue": name, "query": label, "source": str(src),
+                  "distinct_calls": len(mine),
                   "calls": sum(c for *_, c in mine), "largest_wrapper": big[0],
                   "largest_shapes": [list(a.shape) for a in big[1]
                                      if isinstance(a, torch.Tensor)],
@@ -896,6 +1007,7 @@ def profile_turns(other: Path) -> int:
     glue = {name + "_kernel" for name, *_ in GLUE_KERNELS}
     summary = {}
     for root, readings in turns.items():
+        summary[root] = {"build_s": [r.get("build_s") for r in readings]}
         for path in ("16M-4096", "1M-2048-cmp"):
             runs = [r[path] for r in readings]
             profs = [r["profile"] for r in runs]
@@ -920,7 +1032,8 @@ def profile_child(seed: int) -> dict:
     """``--profile-child ROOT``: with the package of checkout ROOT, the warm
     16M-4096 query (dense DB, B=4, C=CACHES) and the warm 1M-2048-cmp query
     (2^20 items through ``set_data``, a 2048-item sender), each WARM times
-    then once under ``profile_query``; the result checksums of every query."""
+    then once under ``profile_query``; the result checksums of every query,
+    and the seconds of the package's kernel build when this process made it."""
     from apsu_tpu_torch.api.parties import Receiver, Sender
     from apsu_tpu_torch.core.params import PSUParams
     from apsu_tpu_torch.db.measured_levels import query_level
@@ -958,6 +1071,9 @@ def profile_child(seed: int) -> dict:
     snd = Sender(params, DebugOprf(), rng=np.random.default_rng(seed + 2), device="cuda")
     req = snd.create_query(query)
     res["1M-2048-cmp"] = warm(Receiver(params, db, rng=np.random.default_rng(seed + 3)), req)
+    from apsu_tpu_torch.ops import _build
+
+    res["build_s"] = _build.build_seconds
     return res
 
 
@@ -979,7 +1095,8 @@ def main() -> int:
                          "check and time in turns with csrc/roofline.cu and this launch path")
     ap.add_argument("--compare-glue", nargs="+", type=Path, default=[], metavar="SRC",
                     help="other G1-G4 sources (csrc/compare/glue_*.cu) to check and time in "
-                         "turns with the package's at the 16M-4096 warm query's G calls")
+                         "turns with the package's at the 16M-4096 and 1M-2048-cmp warm "
+                         "queries' G calls")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1021,6 +1138,8 @@ def main() -> int:
           "build_dir": str(_build.build().parent.name),
           "ptxas": [ln.strip() for ln in _build.ptxas_log.splitlines()
                     if "registers" in ln or "spill" in ln]})
+    GLUE_BUILDS.update(glue_builds(_build.ptxas_log))
+    emit({"glue_builds": GLUE_BUILDS})
 
     # -- phase 2: kernels against plain versions at the paths' shapes -------
     params = PSUParams.load_file(str(ROOT / "parameters" / "16M-4096.json"))
@@ -1129,7 +1248,7 @@ def main() -> int:
     emit({"ntt_warm_query": ntt_ps})
     glue_ps = check_glue_calls(calls["glue"], "16M-4096 warm query", ceil["ceilings"])
     if args.compare_glue:
-        compare_glue(args.compare_glue, calls["glue"])
+        compare_glue(args.compare_glue, calls["glue"], "16M-4096 warm query")
     calls["glue"].clear()
 
     low = rand_residues((B, ph - 1, 2, q.k, N), q.primes, gen)
@@ -1341,15 +1460,17 @@ def glue_entry(name, source, replaces, main, cmp, by_path, others) -> dict:
     plain time, bound, measured-stream ceiling) and its per-query sums there
     and at 1M-2048-cmp (``check_glue_calls``)."""
     per_query = ("launches", "device_ms_per_query", "bound_ms_per_query",
-                 "ceiling_ms_per_query", "by_wrapper", "largest_wrapper", "largest_ms",
-                 "largest_plain_ms", "largest_bound_ms", "largest_shapes")
+                 "ceiling_ms_per_query", "by_wrapper", "ms_by_wrapper", "builds",
+                 "general_launches", "largest_wrapper", "largest_ms", "largest_plain_ms",
+                 "largest_bound_ms", "largest_ceiling_ms", "largest_shapes")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(d["max_abs_err"] for d in [main, cmp] + others),
             "tolerance": TOLERANCE,
             "ms": main["largest_ms"], "plain_ms": main["largest_plain_ms"],
             "bound_ms": main["largest_bound_ms"], "bound_by": main["largest_bound_by"],
-            "ceiling_ms": main["largest_ceiling_ms"], "ceiling_by": "bytes",
+            "ceiling_ms": main["largest_ceiling_ms"], "ceiling_by": main["largest_ceiling_by"],
+            "ceiling_product": "shoup_lazy",
             "library_ms": None, "shape": main["largest_shapes"],
             "16M-4096_warm_query": {k: main[k] for k in per_query if k in main},
             "1M-2048-cmp_warm_query": {k: cmp[k] for k in per_query if k in cmp}}
@@ -2304,6 +2425,8 @@ def psu_path(args, gen, name: str, ceilings: dict, sharded: bool = False,
         powers = rand_residues(pw_shape, base.primes, gen)
         evals = check_eval_dot(powers, cache, base, f"{name} warm query (DB cache)")
     glue = check_glue_calls(calls["glue"], f"{name} warm query", ceilings)
+    if args.compare_glue and name == "1M-2048-cmp":
+        compare_glue(args.compare_glue, calls["glue"], f"{name} warm query")
     if args.profile:
         profile_query(recv, req)
     out = {"launches": launches, "ntt": ntt_summary, kernel: evals, "glue": glue,

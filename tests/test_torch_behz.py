@@ -7,9 +7,16 @@ parameters (N=256), 1M-2048-cmp's (N=4096) and 256M-1's 30-bit primes at
 N=2048; with random residues, every residue p - 1, and every residue 0;
 and the lift's m~ correction and Shenoy-Kumaresan's alpha at their
 thresholds.  The kernels themselves are held against these plain versions on
-the card (``tests/test_torch_kernels.py``, ``chip_smoke.py``)."""
+the card (``tests/test_torch_kernels.py``, ``chip_smoke.py``).  Without a
+card, a numpy model of G3's and the lift's arithmetic (their lazy 64-bit
+sums and reduce64, over the packed tables) is held against the plain
+versions, every parameter file's worst-case sum against 2^64, and the
+kernels' list of exact builds against every parameter file."""
 
 import functools
+import glob
+import json
+import re
 from dataclasses import replace
 
 import jax
@@ -86,13 +93,30 @@ def _jit(f, *args):
     return jax.jit(f)(*args)
 
 
+def _struct_fields(header, struct):
+    """(name, shape) of each u32 field of ``struct`` in csrc/behz.cuh, in
+    order, its array bounds given by name (MAXQ ...) or number."""
+    body = re.search(r"struct %s \{(.*?)\n\};" % struct, header, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    limits = {"MAXQ": behz.MAXQ, "MAXB": behz.MAXB, "MAXL": behz.MAXL}
+    fields = []
+    for decl in re.findall(r"uint32_t ([^;]*);", body):
+        for name, dims in re.findall(r"(\w+)((?:\[\w+\])*)", decl):
+            shape = tuple(limits.get(d) or int(d) for d in re.findall(r"\[(\w+)\]", dims))
+            fields.append((name, shape or (1,)))
+    return fields
+
+
 def test_table_layouts_match_the_kernels_header():
-    """Each constant table has the size of its struct in csrc/behz.cuh."""
+    """Each constant table has the fields of its struct in csrc/behz.cuh, in
+    its order and with its shapes (the lazy sums' fields appended last), and the
+    struct's size."""
     header = open("apsu_tpu_torch/csrc/behz.cuh").read()
     for struct, layout in (("LiftTable", rns.LIFT_LAYOUT), ("ModTable", rns.MOD_LAYOUT),
                            ("ScaleTable", rns.SCALE_LAYOUT), ("DivTable", rns.DIV_LAYOUT)):
         words = sum(int(np.prod(shape)) for _, shape in layout)
         assert f"sizeof({struct}) == {words} * 4" in header
+        assert _struct_fields(header, struct) == list(layout)
     for a, b in (("MAXQ", behz.MAXQ), ("MAXB", behz.MAXB), ("MAXL", behz.MAXL)):
         assert f"constexpr int {a} = {b};" in header
     _, port = ctxs("small")
@@ -331,6 +355,197 @@ def test_scaledown_alpha_at_its_threshold(name):
     assert got_alpha[:, 0].tolist() == [[a] * port.n for a in alphas]
     want = _jit(_ref_scaledown(ref, lvl, 0), to_u32(xq), to_u32(xb))
     assert _eq(want, behz.scaledown_plain(xq, xb, sd))
+
+
+# ---------------------------------------------------------------------------
+# G3 and G1's lift as the kernels compute them: lazy 64-bit sums and one
+# reduce64 an output limb (csrc/behz.cuh, behz_scaledown.cu, behz_lift.cu)
+# ---------------------------------------------------------------------------
+
+M32 = np.uint64(0xFFFFFFFF)
+
+
+def _fields(table, layout):
+    """A packed table's fields by name, as uint64 arrays of their shapes."""
+    out, at = {}, 0
+    for name, shape in layout:
+        size = int(np.prod(shape))
+        out[name] = table[at: at + size].astype(np.uint64).reshape(shape)
+        at += size
+    return out
+
+
+def _col(v):
+    return v.reshape(-1, 1)
+
+
+def _shoup_np(x, c, c_sh, p):
+    """behz.cuh's shoup in u32 arithmetic: x * c - hi(x * c_sh) * p, canonical."""
+    t = (x * c - ((x * c_sh) >> np.uint64(32)) * p) & M32
+    return np.where(t >= p, t - p, t)
+
+
+def _min_sub(t, p):
+    return np.minimum(t, (t - p) & M32)
+
+
+def _reduce64_np(s, c32, c32_sh, one_sh, p):
+    """behz.cuh's reduce64: hi * (2^32 mod p) and lo by one Shoup product
+    each, then canonical."""
+    hi, lo = s >> np.uint64(32), s & M32
+    a = (hi * c32 - ((hi * c32_sh) >> np.uint64(32)) * p) & M32
+    b = (lo - ((lo * one_sh) >> np.uint64(32)) * p) & M32
+    return _min_sub(_min_sub(a, p) + _min_sub(b, p), p)
+
+
+def scaledown_model(x_q, x_b, table, lq, lb):
+    """G3's arithmetic on uint64 arrays of residues [..., Lq, N] and
+    [..., Lb, N] (Montgomery), over its packed table."""
+    f = _fields(table, rns.SCALE_LAYOUT)
+    nb = lb - 1
+    y = [_shoup_np(x_q[..., i, :], f["yq"][i], f["yq_sh"][i], f["q"][i]) for i in range(lq)]
+    w = []
+    for j in range(lb):
+        s = x_b[..., j, :] * f["wx"][j]
+        for i in range(lq):
+            s = s + y[i] * f["wy"][i, j]
+        w.append(_reduce64_np(s, f["b32"][j], f["b32_sh"][j], f["b_one_sh"][j], f["b"][j]))
+    sa = sum(w[j] * f["ak"][j] for j in range(lb))
+    msk = f["b"][nb]
+    alpha = _reduce64_np(sa, f["b32"][nb], f["b32_sh"][nb], f["b_one_sh"][nb], msk)
+    neg = alpha >= f["msk_half"][0]
+    a_abs = np.where(neg, msk - alpha, alpha)
+    out = []
+    for i in range(lq):
+        s = a_abs * np.where(neg, f["pbq"][i], f["npbq"][i])
+        for j in range(nb):
+            s = s + w[j] * f["mb"][j, i]
+        out.append(_reduce64_np(s, f["q32"][i], f["q32_sh"][i], f["q_one_sh"][i], f["q"][i]))
+    return np.stack(out, axis=-2).astype(np.uint32)
+
+
+def lift_model(x, table, lq, lb):
+    """G1's lift on uint64 residues [..., Lq, N] over its packed table:
+    (q.to_mont(x), bsk.to_mont(ExactLiftConv(x)))."""
+    f = _fields(table, rns.LIFT_LAYOUT)
+    out_q = [_shoup_np(x[..., i, :], f["qm"][i], f["qm_sh"][i], f["q"][i]) for i in range(lq)]
+    c = [_shoup_np(x[..., i, :], f["c"][i], f["c_sh"][i], f["q"][i]) for i in range(lq)]
+    c16 = sum((ci & np.uint64(0xFFFF)) * f["phat_mt"][i] for i, ci in enumerate(c)) & M32
+    s = ((c16 & np.uint64(0xFFFF)) * f["q_inv_mt"][0]) & np.uint64(0xFFFF)
+    rr = (np.uint64(0x10000) - s) & np.uint64(0xFFFF)
+    neg = rr >= np.uint64(0x8000)
+    r_abs = np.where(neg, np.uint64(0x10000) - rr, rr)
+    out_b = []
+    for j in range(lb):
+        acc = r_abs * np.where(neg, f["kn"][j], f["k"][j])
+        for i in range(lq):
+            acc = acc + c[i] * f["ma"][i, j]
+        out_b.append(_reduce64_np(acc, f["b32"][j], f["b32_sh"][j], f["b_one_sh"][j],
+                                  f["b"][j]))
+    return (np.stack(out_q, axis=-2).astype(np.uint32),
+            np.stack(out_b, axis=-2).astype(np.uint32))
+
+
+@pytest.mark.parametrize("name", SETS)
+@pytest.mark.parametrize("fill", FILLS)
+def test_scaledown_model_matches_plain(name, fill):
+    """G3's lazy sums and reductions equal ``scaledown_plain`` bit for bit at
+    every level, with the multiply's Bsk and a widened one, and with
+    Shenoy-Kumaresan's alpha at its thresholds."""
+    _, port = ctxs(name)
+    for lvl in range(1, port.q.k + 1):
+        for extra in (0, 5):
+            sd = port._mul_ctx(lvl, extra)["scale"]
+            xq = _residues((2, 3, lvl, port.n), sd.q.primes, lvl, fill)
+            xb = _residues((2, 3, sd.bsk.k, port.n), sd.bsk.primes, lvl + 1, fill)
+            want = to_u32(behz.scaledown_plain(_t(xq), _t(xb), sd))
+            got = scaledown_model(xq.astype(np.uint64), xb.astype(np.uint64), sd.table, lvl,
+                                  sd.bsk.k)
+            assert np.array_equal(got, want)
+    lvl = port.q.k
+    sd = port._mul_ctx(lvl)["scale"]
+    half, msk = sd.sk_conv.msk_half, sd.sk_conv.m_sk
+    xq, xb = _scaledown_at(port, lvl, [half - 1, half, half + 1, 0, msk - 1], seed=5)
+    got = scaledown_model(to_u32(xq).astype(np.uint64), to_u32(xb).astype(np.uint64),
+                          sd.table, lvl, sd.bsk.k)
+    assert np.array_equal(got, to_u32(behz.scaledown_plain(xq, xb, sd)))
+
+
+@pytest.mark.parametrize("name", SETS)
+@pytest.mark.parametrize("fill", FILLS)
+def test_lift_model_matches_plain(name, fill):
+    """The lift's lazy sums and reductions equal ``lift_plain`` bit for bit
+    at every level, with the multiply's Bsk and a widened one, and with the
+    m~ correction at its thresholds."""
+    _, port = ctxs(name)
+    for lvl in range(1, port.q.k + 1):
+        for extra in (0, 5):
+            lift = port._mul_ctx(lvl, extra)["lift"]
+            x = _residues((2, 3, lvl, port.n), lift.src.primes, lvl + extra, fill)
+            want_q, want_b = behz.lift_plain(_t(x), lift)
+            got_q, got_b = lift_model(x.astype(np.uint64), lift.table, lvl, lift.dst.k)
+            assert np.array_equal(got_q, to_u32(want_q)) and np.array_equal(got_b, to_u32(want_b))
+    lvl = port.q.k
+    lift = port._mul_ctx(lvl)["lift"]
+    x = _lift_at(port, lvl, [0x7FFF, 0x8000, 0x8001, 0, 0xFFFF], seed=3)
+    got_b = lift_model(x.astype(np.uint64), lift.table, lvl, lift.dst.k)[1]
+    assert np.array_equal(got_b, to_u32(behz.lift_plain(_t(x), lift)[1]))
+
+
+@functools.lru_cache(maxsize=None)
+def _every_mul_ctx():
+    """(file, level, extra_bits, the port's multiply context) of every
+    parameter file at every level, with the multiply's Bsk and the widened
+    Bsk of every multiply-sum a path can ask for: extra_bits up to
+    ⌈log2 nh⌉ of the largest PS evaluation's outer sum (nh high powers)."""
+    files = sorted(glob.glob("parameters/*.json"))
+    most = 0
+    for f in files:
+        d = json.load(open(f))
+        low = d["query_params"]["ps_low_degree"]
+        if low:
+            nh = d["table_params"]["max_items_per_bin"] // (low + 1)
+            most = max(most, max(1, (nh - 1).bit_length()))
+    out = []
+    for f in files:
+        port = BfvContext(PSUParams.load_file(f).seal_params, device="cpu")
+        for lvl in range(1, port.q.k + 1):
+            for extra in range(most + 1):
+                out.append((f, lvl, extra, port._mul_ctx(lvl, extra)))
+    return out
+
+
+def test_exact_builds_cover_every_parameter_file():
+    """Every (q limbs, Bsk limbs) pair that a parameter file reaches is one
+    that G3 and the lift are built for exactly (``behz.exact_pairs()``,
+    csrc/behz.cuh's BEHZ_EXACT_PAIRS), and the list has no pair that none
+    reaches; the tests' 9-limb chain takes the general build."""
+    reached = {(lvl, mc["bsk"].k) for _, lvl, _, mc in _every_mul_ctx()}
+    assert reached == behz.exact_pairs()
+    assert all(lq <= behz.MAXQ and lb <= behz.MAXB for lq, lb in reached)
+
+
+def test_lazy_sums_fit_64_bits():
+    """The largest u64 sum G3 and the lift can form, every input at its
+    largest residue, stays below 2^64 on every parameter file, level and
+    Bsk (and below 2^63, so the bound is not a near miss)."""
+    worst = 0
+    for _, lvl, _, mc in _every_mul_ctx():
+        f = {k: v.astype(object) for k, v in _fields(mc["scale"].table, rns.SCALE_LAYOUT).items()}
+        q, b = f["q"][:lvl], f["b"][: mc["bsk"].k]
+        lb, nb = len(b), len(b) - 1
+        for j in range(lb):
+            worst = max(worst, (b[j] - 1) * f["wx"][j]
+                        + sum((q[i] - 1) * f["wy"][i, j] for i in range(lvl)))
+        worst = max(worst, sum((b[j] - 1) * f["ak"][j] for j in range(lb)))
+        for i in range(lvl):
+            worst = max(worst, (b[nb] - 1) // 2 * max(f["pbq"][i], f["npbq"][i])
+                        + sum((b[j] - 1) * f["mb"][j, i] for j in range(nb)))
+        g = {k: v.astype(object) for k, v in _fields(mc["lift"].table, rns.LIFT_LAYOUT).items()}
+        for j in range(lb):
+            worst = max(worst, (1 << 15) * max(g["k"][j], g["kn"][j])
+                        + sum((q[i] - 1) * g["ma"][i, j] for i in range(lvl)))
+    assert worst < 1 << 63
 
 
 # ---------------------------------------------------------------------------

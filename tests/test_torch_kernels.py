@@ -5,6 +5,9 @@ anywhere else.  On a GPU host without JAX:
     python -m pytest tests/test_torch_kernels.py --noconftest -q
 """
 
+import functools
+import glob
+
 import numpy as np
 import pytest
 import torch
@@ -13,7 +16,7 @@ from apsu_tpu_torch.core.bfv import BfvContext, Ciphertext
 from apsu_tpu_torch.core.nt import gen_ntt_primes
 from apsu_tpu_torch.core.ntt import NttContext
 from apsu_tpu_torch.core.params import PSUParams
-from apsu_tpu_torch.core.rns import RnsBase
+from apsu_tpu_torch.core.rns import ExactLiftConv, RnsBase, ScaleDown
 from apsu_tpu_torch.device import canonical
 from apsu_tpu_torch.ops import ntt as ntt_op
 from apsu_tpu_torch.ops import behz, polyeval, roofline
@@ -427,14 +430,62 @@ def _glue_residues(shape, primes, seed, fill):
     return torch.zeros_like(x) if fill == "zero" else x
 
 
+# a stand-in for every (q limbs, Bsk limbs) pair that G3 and the lift are
+# built for exactly (ops/behz.py:exact_pairs)
+EXACT = "every exact pair"
+
+
+@functools.lru_cache(maxsize=None)
+def _exact_pair_primes():
+    """For each exact pair, (q primes, Bsk primes, t, N) of the first
+    parameter file that reaches it (at a level, with the multiply's Bsk or a
+    multiply-sum's widened one)."""
+    found = {}
+    for f in sorted(glob.glob("parameters/*.json")):
+        host = BfvContext(PSUParams.load_file(f).seal_params, "cpu")
+        for lvl in range(1, host.q.k + 1):
+            for extra in range(7):
+                bsk = host._mul_ctx(lvl, extra)["bsk"]
+                found.setdefault((lvl, bsk.k), (host.q_primes[:lvl], bsk.primes, host.t, host.n))
+    assert set(found) == behz.exact_pairs()
+    return tuple(found.values())
+
+
+def _exact_pair_bases():
+    """For each exact pair, (q, Bsk, t) on the card."""
+    _need_cuda()
+    return [(RnsBase(qs, n, "cuda"), RnsBase(bs, n, "cuda"), t)
+            for qs, bs, t, n in _exact_pair_primes()]
+
+
+def _general_launches():
+    return behz.lift_general_launches, behz.scaledown_general_launches
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", GLUE_SETS)
+@pytest.mark.parametrize("name", GLUE_SETS + [EXACT])
 @pytest.mark.parametrize("fill", FILLS)
 def test_behz_lift_kernel_matches_plain(name, fill):
     """G1 in its three modes: the lift (both forms, and the Bsk form alone,
     from strided views: one run of rows, two read in place, three copied),
-    to_mont / from_mont of every base, the digits."""
+    to_mont / from_mont of every base, the digits.  The lift also on every
+    exact build, and on the general build only for "ps" (9 q limbs)."""
+    if name == EXACT:
+        before = _general_launches()
+        for q, bsk, _ in _exact_pair_bases():
+            lift = ExactLiftConv(q, bsk)
+            x = _glue_residues((2, 3, 3, q.k, q.n), q.primes, q.k, fill)
+            for v in (x, x[:, 1:]):
+                for want_q in (True, False):
+                    got, want = behz.lift_cuda(v, lift, want_q), behz.lift_plain(v, lift, want_q)
+                    assert torch.equal(got[1], want[1])
+                    assert (got[0] is None) == (not want_q)
+                    if want_q:
+                        assert torch.equal(got[0], want[0])
+        assert _general_launches() == before
+        return
     bfv = _glue_ctx(name)
+    general = behz.lift_general_launches
     for lvl in range(2, bfv.q.k + 1):
         for extra in (0, 5):
             mc = bfv._mul_ctx(lvl, extra)
@@ -457,6 +508,7 @@ def test_behz_lift_kernel_matches_plain(name, fill):
             qp = bfv._qp_level(lvl)
             c2 = _glue_residues((3, 3, lvl, bfv.n), bfv.q_primes[:lvl], lvl, fill)[:, 2]
             assert torch.equal(behz.digits_cuda(c2, qp, lvl), behz.digits_plain(c2, qp, lvl))
+    assert (behz.lift_general_launches > general) == (name == "ps")
 
 
 @pytest.mark.cuda
@@ -492,19 +544,23 @@ def test_mont_mac_kernel_matches_plain(name, fill):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", GLUE_SETS)
+@pytest.mark.parametrize("name", GLUE_SETS + [EXACT])
 @pytest.mark.parametrize("fill", FILLS)
 def test_behz_scaledown_kernel_matches_plain(name, fill):
-    """G3 at every level, with the multiply's Bsk and the widened one."""
-    bfv = _glue_ctx(name)
-    for lvl in range(1, bfv.q.k + 1):
-        for extra in (0, 5):
-            mc = bfv._mul_ctx(lvl, extra)
-            q, bsk = bfv.levels[lvl], mc["bsk"]
-            x_q = _glue_residues((2, 3, q.k, q.n), q.primes, lvl, fill)
-            x_b = _glue_residues((2, 3, bsk.k, q.n), bsk.primes, lvl + 1, fill)
-            assert torch.equal(behz.scaledown_cuda(x_q, x_b, mc["scale"]),
-                               behz.scaledown_plain(x_q, x_b, mc["scale"]))
+    """G3 at every level, with the multiply's Bsk and the widened one; on
+    every exact build, and on the general build only for "ps" (9 q limbs)."""
+    general = behz.scaledown_general_launches
+    if name == EXACT:
+        cases = [(q, bsk, ScaleDown(q, bsk, t)) for q, bsk, t in _exact_pair_bases()]
+    else:
+        bfv = _glue_ctx(name)
+        cases = [(bfv.levels[lvl], mc["bsk"], mc["scale"]) for lvl in range(1, bfv.q.k + 1)
+                 for mc in (bfv._mul_ctx(lvl, 0), bfv._mul_ctx(lvl, 5))]
+    for q, bsk, sd in cases:
+        x_q = _glue_residues((2, 3, q.k, q.n), q.primes, q.k, fill)
+        x_b = _glue_residues((2, 3, bsk.k, q.n), bsk.primes, q.k + 1, fill)
+        assert torch.equal(behz.scaledown_cuda(x_q, x_b, sd), behz.scaledown_plain(x_q, x_b, sd))
+    assert (behz.scaledown_general_launches > general) == (name == "ps")
 
 
 @pytest.mark.cuda
