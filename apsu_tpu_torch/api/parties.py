@@ -25,13 +25,7 @@ from apsu_tpu_torch.core.params import PSUParams
 from apsu_tpu_torch.db.measured_levels import defer_relin, powers_at_eval, query_level
 from apsu_tpu_torch.db.receiver_db import ReceiverDB
 from apsu_tpu_torch.device import synchronize
-from apsu_tpu_torch.engine.evaluator import (
-    compute_power_tensor,
-    compute_ps_power_tensors,
-    eval_matching_polys,
-    eval_matching_polys_labeled,
-    eval_matching_polys_ps,
-)
+from apsu_tpu_torch.engine import programs
 from apsu_tpu_torch.engine.powers import plan_query
 from apsu_tpu_torch.hash.cuckoo import CuckooTable, cuckoo_insert
 from apsu_tpu_torch.hash.encoding import felts_from_items, items_from_felts
@@ -235,63 +229,55 @@ class Receiver:
         return cts, rk, mask
 
     def run_query(self, req: QueryRequest, timings: Optional[dict] = None) -> QueryResponse:
-        """Evaluate one query.  ``timings``: pass a dict to get an in-call
-        phase split {"powers_s", "eval_s"} (a device sync is inserted between
-        the power wavefront and the evaluation).  On a labeled DB the label
-        blinding ρ is drawn from ``rng`` after the mask."""
+        """Evaluate one query as two programs (``engine/programs.py``): the
+        power tensors, then the evaluation.  ``timings``: pass a dict to get
+        an in-call phase split {"powers_s", "eval_s"} (a device sync is
+        inserted between the two).  On a labeled DB the label blinding ρ is
+        drawn from ``rng`` after the mask."""
         p = self.params
+        db, bfv, ql = self.db, self.bfv, self.query_lvl
         cts, rk, mask = self._prepare(req)
         B, C, N = mask.shape
         t = p.seal_params.plain_modulus
+        datas = [cts[s].data for s in req.power_list]
+        ksk = rk.ksk if rk is not None else None
+        mask_t = torch.from_numpy(mask.view(np.int32))
 
         label_results = None
         t0 = time.perf_counter()
         if self.plan.uses_ps:
-            low_ntt, high_coeff = compute_ps_power_tensors(
-                self.bfv, cts, self.plan, rk, eval_level=self.db.eval_lvl,
-                at_eval=powers_at_eval(p), defer_relin=defer_relin(p),
-            )
+            low_ntt, high_coeff = programs.ps_power_tensors(
+                bfv, datas, req.power_list, ql, self.plan, ksk, db.eval_lvl,
+                at_eval=powers_at_eval(p), defer_relin=defer_relin(p))
             last = high_coeff
         else:
-            powers = compute_power_tensor(
-                self.bfv, cts, self.plan.low, rk, self.db.eval_lvl, at_eval=powers_at_eval(p),
-            ).movedim(0, 1).contiguous()  # [B, D, 2, Le, N]
+            powers = programs.power_tensor(bfv, datas, req.power_list, ql, self.plan.low, ksk,
+                                           db.eval_lvl, at_eval=powers_at_eval(p))
             last = powers
         if timings is not None:
             synchronize(last)
             timings["powers_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
         if self.plan.uses_ps:
-            res = eval_matching_polys_ps(
-                self.bfv,
-                low_ntt,      # [B, ℓ, 2, L, N]
-                high_coeff,   # [B, nh, 2, L, N]
-                self.db.coeff_cache,
-                self.db.ps_const_polys,
-                self.bfv.tensor(mask),
-                rk,
-                p.query_params.ps_low_degree,
-                self.db.result_lvl,
-                p.table_params.max_items_per_bin,
-                eval_level=self.db.eval_lvl,
-            )
-        elif self.db.label_cache is not None:
+            res = programs.ps_matching(
+                bfv, low_ntt, high_coeff, db.coeff_cache, db.ps_const_polys, mask_t, ksk, ql,
+                p.query_params.ps_low_degree, db.result_lvl, p.table_params.max_items_per_bin,
+                eval_level=db.eval_lvl)
+            level = db.result_lvl
+        elif db.label_cache is not None:
             rho = self.rng.integers(1, t, size=(B, C, N), dtype=np.uint64).astype(np.uint32)
-            res, res_l = eval_matching_polys_labeled(
-                self.bfv, powers, self.db.coeff_cache, self.db.const_slots,
-                self.bfv.tensor(mask), self.db.label_cache, self.db.label0_slots,
-                self.bfv.tensor(rho), self.db.eval_lvl,
-            )
-            label_results = res_l.data
+            res, label_results = programs.matching_labeled(
+                bfv, powers, db.coeff_cache, db.const_slots, mask_t, db.label_cache,
+                db.label0_slots, torch.from_numpy(rho.view(np.int32)), db.eval_lvl)
+            level = db.eval_lvl
         else:
-            res = eval_matching_polys(
-                self.bfv, powers, self.db.coeff_cache, self.db.const_slots,
-                self.bfv.tensor(mask), self.db.eval_lvl,
-            )
+            res = programs.matching(bfv, powers, db.coeff_cache, db.const_slots, mask_t,
+                                    db.eval_lvl)
+            level = db.eval_lvl
         if timings is not None:
-            synchronize(res.data)
+            synchronize(res)
             timings["eval_s"] = time.perf_counter() - t0
-        return QueryResponse(results=res.data, eval_level=res.level, label_results=label_results)
+        return QueryResponse(results=res, eval_level=level, label_results=label_results)
 
     def peqt_matrix(self) -> np.ndarray:
         """The last query's mask in per-item felt-block form [C, table_size, fpi]."""

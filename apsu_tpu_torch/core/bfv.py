@@ -163,6 +163,18 @@ class BfvContext:
         self.div_drop: List[Optional[ExactDiv]] = [None] * (len(self.q_primes) + 1)
         for lvl in range(1, len(self.q_primes)):
             self.div_drop[lvl + 1] = ExactDiv(self.levels[lvl], self.q_primes[lvl])
+        # _scale_impl's constant columns at every level: (t >> 1) mod q_j and
+        # t^{-1} mod q_j with its Shoup companion, uploaded once here (an
+        # upload per call could not be captured into a CUDA graph)
+        t = self.t
+        self._scale_cols = [None] + [
+            (col([(t >> 1) % p for p in b.primes], dev),
+             shoup_cols([pow(t % p, -1, p) for p in b.primes], b.primes, dev))
+            for b in self.levels[1:]
+        ]
+        # the query's programs (engine/programs.py), the counterpart of the
+        # reference's _jit_cache
+        self.programs = {}
 
     def _mul_ctx(self, level: int, extra_bits: int = 0):
         """Per-level BEHZ multiply machinery (Bsk base sized to Q_level).
@@ -504,12 +516,10 @@ class BfvContext:
         base = self.levels[level]
         t = self.t
         r = base.prod % t
-        h = t >> 1
         m1 = m[..., None, :]
         rm = smul(m1, r, t)
-        rem = add_mod(rm, h, t)                                      # [..., 1, N] < t
-        hq = col([h % p for p in base.primes], self.device)
-        tinv_sh = shoup_cols([pow(t % p, -1, p) for p in base.primes], base.primes, self.device)
+        rem = add_mod(rm, t >> 1, t)                                 # [..., 1, N] < t
+        hq, tinv_sh = self._scale_cols[level]
         diff = sub_mod(hq, rem, base.p_d)   # rem < t < q_j: valid residue mod q_j
         return shoup_mul(diff, *tinv_sh, base.p_d)
 

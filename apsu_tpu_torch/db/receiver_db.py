@@ -33,6 +33,11 @@ polynomials ``ps_const_polys [B, C, nh+1, N]``.
 * **Checkpoints.** ``save``/``load`` use the reference's layout (uint32
   ``.npy`` arrays, ``params.json``, ``meta.json``, the KKRT sender state), so
   a DB saved by either package loads in the other.
+* **Programs.** A query's CUDA graphs read the cache by address
+  (``engine/programs.py``): the builds, ``strip``, ``rebind`` and
+  ``release_cache`` (so an insert that grows the cache axis) drop the
+  context's programs first.  A mutation rebuilt in place keeps them: every
+  address stays.
 
 ``set_synthetic_dense`` builds the cache from random full bins, and
 ``from_arrays`` carries a reference DB's arrays across.
@@ -53,6 +58,7 @@ import torch
 from apsu_tpu_torch.core.bfv import BfvContext
 from apsu_tpu_torch.core.params import PSUParams
 from apsu_tpu_torch.db import measured_levels
+from apsu_tpu_torch.engine import programs
 from apsu_tpu_torch.engine.interpolate import newton_interpolate, polyn_with_roots
 from apsu_tpu_torch.engine.powers import plan_query
 from apsu_tpu_torch.hash.encoding import felts_from_items
@@ -247,6 +253,7 @@ class ReceiverDB:
         without placing the items again."""
         if self.oprf is None:
             raise ValueError("set_data needs an OPRF backend")
+        programs.drop(self.bfv)
         slots, row_keep = self._locations(items)
         if labels is None:
             return self._set_data_unlabeled(items, slots, row_keep, eval_level, assume_unique)
@@ -560,6 +567,7 @@ class ReceiverDB:
         """Worst-case synthetic DB: every bin packed to max_items_per_bin with
         random roots (the same draws as the reference).  Returns the roots
         tensor [B, C, K, N] so callers can plant matching query values."""
+        programs.drop(self.bfv)
         p = self.params
         tp = p.table_params
         B, N, K = p.bundle_idx_count, p.poly_degree, tp.max_items_per_bin
@@ -646,6 +654,7 @@ class ReceiverDB:
         """Drop the host roots, counts and placement and keep only the
         evaluation cache: the smallest state that still answers queries.  A
         stripped DB can no longer mutate or rebind."""
+        programs.drop(self.bfv)
         self._roots = None
         self._counts = None
         self._placement = None
@@ -670,6 +679,7 @@ class ReceiverDB:
                 "no retained placement (labeled build, stripped, or mutated since "
                 "set_data): rebind needs a fresh set_data"
             )
+        programs.drop(self.bfv)   # the new DB shares this context
         db = ReceiverDB(self.params, oprf, bfv=self.bfv, loc_seed=self._loc_seed,
                         bundle_range=self.bundle_range, cache_range=self.cache_range)
         self._materialize_placement(
@@ -680,6 +690,7 @@ class ReceiverDB:
     def release_cache(self) -> None:
         """Drop the device tensors.  The DB answers no query afterwards; its
         placement stays, so it can still ``rebind``."""
+        programs.drop(self.bfv)
         self.coeff_cache = self.const_slots = self.ps_const_polys = None
         self.label_cache = self.label0_slots = None
 
@@ -928,7 +939,9 @@ class ReceiverDB:
 
     def _rebuild_bundles(self, bundles) -> None:
         """Re-run the device build for the given bundle indices only, written
-        into the resident cache, constants and chunk constants in place."""
+        into the resident cache, constants and chunk constants in place: every
+        address stays, so the context's programs stay valid and read the new
+        values."""
         for b in sorted(bundles):
             const_b, ps_b = self._build_bundle(self._roots[b], self._counts[b], self.eval_lvl,
                                                self.coeff_cache, b)

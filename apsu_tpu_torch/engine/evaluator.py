@@ -142,7 +142,10 @@ def _run_schedule(
             ]
             now_idx = [i for i in range(len(group)) if i not in defer_idx]
             if now_idx:
-                sel = prod3 if len(now_idx) == len(group) else prod3[now_idx]
+                # a stack of views, not a list index: that would upload the
+                # index from the host, which a CUDA graph cannot capture
+                sel = (prod3 if len(now_idx) == len(group)
+                       else torch.stack([prod3[i] for i in now_idx]))
                 rel = rm(lambda ctx, x: ctx.relinearize(
                     Ciphertext(x, is_ntt=False, level=k), _rk_on(relin_key, ctx)).data, sel)
                 for j, i in enumerate(now_idx):
@@ -322,13 +325,13 @@ def compute_ps_power_tensors(
     def stack(idx):
         return torch.stack([items[i].data for i in idx])
 
-    parts = [rm(lambda ctx, x: switch(ctx, x).data, stack(i2))] if i2 else []
+    rows = {}
+    if i2:
+        rows.update(zip(i2, rm(lambda ctx, x: switch(ctx, x).data, stack(i2)).unbind()))
     if i3:
-        parts.append(rm(lambda ctx, x: ctx.relinearize(
-            switch(ctx, x), _rk_on(relin_key, ctx)).data, stack(i3)))
-    full = torch.cat(parts)
-    order = sorted(range(len(i2 + i3)), key=lambda j: (i2 + i3)[j])
-    full = full[order]  # back to power order
+        rows.update(zip(i3, rm(lambda ctx, x: ctx.relinearize(
+            switch(ctx, x), _rk_on(relin_key, ctx)).data, stack(i3)).unbind()))
+    full = torch.stack([rows[i] for i in range(len(items))])  # back to power order
     low_ntt = rm(lambda ctx, x: ctx.to_ntt(Ciphertext(x, is_ntt=False, level=lvl)).data,
                  full[:nlow])
     high_coeff = full[nlow:]

@@ -181,7 +181,7 @@ def launch(name: str, entry, index: int, *args) -> int:
     made current for the call when it is not.  Returns 1, or 0 while the
     stream is being captured into a CUDA graph: the wrappers add it to their
     launch counts, and a captured launch counts at each replay
-    (``tools.graph_ms``).  The device, the raw stream and the capture state
+    (``ops/counts.py``).  The device, the raw stream and the capture state
     are read through ``torch._C`` (what ``torch.cuda.current_device``,
     ``current_stream().cuda_stream`` and ``is_current_stream_capturing``
     wrap): a ``Stream`` object costs more than the launch itself."""

@@ -50,7 +50,7 @@ from apsu_tpu_torch.core.mod32 import I32, I64, add_mod, mont_mul, shoup_mul
 from apsu_tpu_torch.ops import _build
 
 # kernel launches since the last reset (set to 0 to reset); a launch captured
-# into a CUDA graph is counted at each replay, by ``tools.graph_ms``
+# into a CUDA graph is counted at each replay (``ops/counts.py``)
 lift_launches = 0        # G1
 mac_launches = 0         # G2
 scaledown_launches = 0   # G3
@@ -243,8 +243,9 @@ def mont_mac_plain(fa, fb, base):
 
 def _key_rows(ksk, lvl: int, klvl: int):
     """The key restricted to level ``lvl``: digit rows 0..lvl-1 and limb
-    columns {0..lvl-1, special}, the special column at ``klvl``."""
-    return ksk[:lvl][:, :, list(range(lvl)) + [klvl], :]
+    columns {0..lvl-1, special}, the special column at ``klvl`` (slices,
+    no index uploaded from the host)."""
+    return torch.cat([ksk[:lvl, :, :lvl], ksk[:lvl, :, klvl:klvl + 1]], dim=2)
 
 
 def keyswitch_mac_plain(d, ksk, qp, lvl: int, klvl: int):

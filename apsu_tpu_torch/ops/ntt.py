@@ -26,7 +26,7 @@ from apsu_tpu_torch.core.mod32 import I32, I64, shoup_mul_lazy
 from apsu_tpu_torch.ops import _build
 
 # kernel launches since the last reset (set to 0 to reset); a launch captured
-# into a CUDA graph is counted at each replay, by ``tools.graph_ms``
+# into a CUDA graph is counted at each replay (``ops/counts.py``)
 launches = 0
 
 MAX_LOGN = 13  # 32 KB row in shared memory

@@ -55,7 +55,7 @@ DEG_CHUNK = 8
 MAX_PRIME = 1 << 30   # both kernels' operand bound: products < 2^60 (fold every 8)
 
 # kernel launches since the last reset (set to 0 to reset); a launch captured
-# into a CUDA graph is counted at each replay, by ``tools.graph_ms``
+# into a CUDA graph is counted at each replay (``ops/counts.py``)
 launches = 0  # PS kernel launches
 dot_launches = 0  # dot kernel launches since the last reset
 

@@ -31,7 +31,7 @@ PNI = (-pow(P, -1, 1 << 32)) % (1 << 32)
 OPS = ("mul32", "mul_wide", "mont_mul", "shoup_lazy")   # the C entry's op codes, in order
 
 # kernel launches since the last reset (set to 0 to reset); a launch captured
-# into a CUDA graph is counted at each replay, by ``tools.graph_ms``
+# into a CUDA graph is counted at each replay (``ops/counts.py``)
 loop_launches = 0   # vpu_loop kernel launches
 add_launches = 0    # add_one kernel launches
 

@@ -7,17 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from apsu_tpu_torch.ops import behz, ntt, polyeval, roofline
-
-# every kernel wrapper's launch count, as (module, name)
-_COUNTERS = ((ntt, "launches"), (polyeval, "launches"), (polyeval, "dot_launches"),
-             (roofline, "loop_launches"), (roofline, "add_launches"),
-             (behz, "lift_launches"), (behz, "mac_launches"), (behz, "scaledown_launches"),
-             (behz, "divround_launches"))
-
-
-def _launch_counts() -> list:
-    return [getattr(mod, name) for mod, name in _COUNTERS]
+from apsu_tpu_torch.ops import counts
 
 
 def window_ms(fn):
@@ -51,23 +41,12 @@ def graph_ms(fn, reps: int = 20) -> float:
     kernel shorter than the host's launch overhead is timed too.
 
     The wrappers count no launch while the graph is captured; each replay
-    adds ``reps`` times the launches of one eager call of ``fn`` to their
-    counts, since that is what runs."""
+    adds the hand-written kernels the graph holds to their counts
+    (``ops/counts.capture``)."""
     fn()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    before = _launch_counts()
-    with torch.cuda.stream(side):
-        fn()
-    per_call = [a - b for a, b in zip(_launch_counts(), before)]
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+    graph, _, per_replay = counts.capture(fn, reps)
     graph.replay()
     ms = window_ms(graph.replay)[1]
     del graph
-    for (mod, name), n in zip(_COUNTERS, per_call):   # two replays
-        setattr(mod, name, getattr(mod, name) + 2 * n * reps)
+    counts.add(per_replay, 2)   # two replays
     return ms / reps

@@ -35,13 +35,17 @@ Phases, each printing one JSON object per line:
    the last line comes from these rates;
 4. the PS path at full width: a dense synthetic 16M-4096 ReceiverDB
    (B=4, C=6, cache [4, 6, 1312, 4, 8192] int32 on the card), one encrypted
-   query with a relinearization key, ``Receiver.run_query`` once cold, three
-   times warm and once with the in-call split, then the planted-match oracle
-   on every response: each planted match decrypts to that query's mask and
-   no non-match does (and, as a control, a response checked against another
-   query's mask must fail);
-5. the kernels again against their plain versions at every shape the warm
-   PS query launched them with, and their per-query device time and bound;
+   query with a relinearization key, ``Receiver.run_query`` once cold (its
+   two programs captured into CUDA graphs, ``engine/programs.py``), three
+   times warm (replayed), once under ``programs.eager()`` with every kernel
+   call recorded (phases 6, 7, 11 and 14 record the same way: a replay
+   calls no wrapper) and once replayed with the in-call split, then the
+   planted-match oracle on every response: each planted match decrypts to
+   that query's mask and no non-match does (and, as a control, a response
+   checked against another query's mask must fail); the launches per query
+   are a replayed query's, which counts what an eager one launches;
+5. the kernels again against their plain versions at every shape the
+   recorded PS query launched them with, and their per-query device time and bound;
    the glue kernels G1-G4 (``ops/behz.py``) at every call of that query, on
    the inputs it gave them, each distinct call then timed by graph replay
    beside its bound and the measured ceilings (phases 6, 7, 11, 12 and 14
@@ -108,7 +112,8 @@ Phases, each printing one JSON object per line:
 12. the sharded receiver (``parallel/runtime.py``), run right after phase 5
    on phase 4's 16M-4096 DB and right after phase 6 on its 1M-2048-cmp DB
    (``sharded_path``): ``ShardedReceiver`` on a 1-shard mesh (the one-card
-   deployment) timed in turns with ``Receiver.run_query``, and on a 5-shard
+   deployment) timed in turns with ``Receiver.run_query`` under
+   ``programs.eager()`` (the mesh path has no programs), and on a 5-shard
    mesh on the one card (16M-4096's 24 rows as 5/5/5/5/4; a check of the
    partition, not a deployment time); every response bit for bit equal to
    the direct one under the same mask seed and exact by the set's oracle
@@ -129,7 +134,18 @@ Phases, each printing one JSON object per line:
    ``Sender`` query of which 128 items are in the DB, ``run_psu`` and the
    warm queries checked as in phase 6, K3 held against its plain version at
    the shape the warm query launched it with;
-15. with ``--compare-ntt``, each given NTT source (an earlier ``ntt.cu``, or
+15. the query's programs (``programs_path``), run at the end of phases 4-5
+   (16M-4096), 6 (1M-2048-cmp), 7 (1M-2048-com), 11 (labeled 1M-1-32) and
+   14 (1M-256-288) on their DBs and requests: the programs dropped, one
+   eager and one graphed query (the capture; its extra time over a replay
+   is the capture's cost), then eager and graphed queries in turns under
+   shared mask seeds, bit for bit equal and exact by the path's oracle (a
+   control must fail), the launches of a replayed and of an eager query
+   (equal), one graphed query profiled, each program's replay timed alone,
+   ``torch.cuda.memory_reserved()`` after the drop, after an eager query,
+   after the capture and after ``strip`` drops the programs; then the
+   ``programs_summary`` line;
+16. with ``--compare-ntt``, each given NTT source (an earlier ``ntt.cu``, or
    a variant of it) built alone, checked and timed in turns with
    ``csrc/ntt.cu`` at the two largest NTT shapes (``compare_ntt``); with
    ``--compare-ps-inner``, each given PS inner-sum source likewise, at K2's
@@ -149,11 +165,12 @@ Phases, each printing one JSON object per line:
    (``csrc/compare/glue_*.cu``) built alone, checked and timed in turns
    with the package's kernels at every G call of phase 5's and phase 6's
    warm queries (``compare_glue``);
-16. the ``kernels`` summary line (K1-K3, K9, K10, then G1-G4 with their
+17. the ``kernels`` summary line (K1-K3, K9, K10, then G1-G4 with their
    launches on the in-process paths), then ``{"ok": true, "device": ...}``.
 With ``--profile``, one warm query of phases 5, 6, 7 and 14 runs under
 ``torch.profiler`` (``profile_query``: device time by kernel and by the
-port function around each launch, busy and idle share).
+port function around each launch, each port span's host time, busy and
+idle share).
 
 Any mismatch, build failure or launch failure raises, and the run exits
 non-zero without the ``ok`` line.  Exits non-zero at once when
@@ -443,37 +460,57 @@ def recording_kernels(calls: dict, on: bool = True, keep: bool = True):
     ``keep`` False a call holds no tensor and no tables, only what describes
     them: the cache's (shape, strides) and the tables' or base's (primes,
     N), so a whole process is recorded without keeping its device memory
-    alive (``cli_child``).  The counts of launches are the wrappers' own."""
-    from apsu_tpu_torch.ops import behz
+    alive (``cli_child``).  The counts of launches are the wrappers' own.
+
+    A call made while a program is captured into a CUDA graph
+    (``engine/programs.py``) launches nothing and is not recorded: its
+    shapes are those of the program's eager warm-up call, which is.  Each
+    replay of a program adds its launches to "replayed" (counter name ->
+    launches), so recorded calls + replayed launches = launches."""
+    from apsu_tpu_torch.engine import programs
+    from apsu_tpu_torch.ops import behz, counts
     from apsu_tpu_torch.ops import ntt as ntt_op
     from apsu_tpu_torch.ops import polyeval
 
     real_ntt, real_dot, real_ps = ntt_op.ntt_cuda, polyeval.eval_dot_cuda, polyeval.ps_inner_cuda
     real_glue = {name: getattr(behz, name) for name in GLUE_WRAPPERS}
+    real_replay = programs.Program.replay
     held = (lambda t: t) if keep else (lambda t: (tuple(t.shape), tuple(t.stride())))
     tables = (lambda tb: tb) if keep else (lambda tb: (tuple(tb.primes), tb.n))
+    capturing = torch.cuda.is_current_stream_capturing
 
     def ntt(x, tb, inverse=False):
-        calls["ntt"].append((tuple(x.shape), inverse, tables(tb)))
+        if not capturing():
+            calls["ntt"].append((tuple(x.shape), inverse, tables(tb)))
         return real_ntt(x, tb, inverse)
 
     def dot(powers, cache, base):
-        calls["eval_dot"].append((tuple(powers.shape), held(cache), tables(base)))
+        if not capturing():
+            calls["eval_dot"].append((tuple(powers.shape), held(cache), tables(base)))
         return real_dot(powers, cache, base)
 
     def ps(low, cache5, base, caches_per_bundle):
-        calls["ps_inner"].append((tuple(low.shape), held(cache5), tables(base)))
+        if not capturing():
+            calls["ps_inner"].append((tuple(low.shape), held(cache5), tables(base)))
         return real_ps(low, cache5, base, caches_per_bundle)
 
     def glue(name):
         def run(*args):
-            calls["glue"].append((name, [strided_copy(a) if isinstance(a, torch.Tensor) else a
-                                         for a in args]))
+            if not capturing():
+                calls["glue"].append((name, [strided_copy(a) if isinstance(a, torch.Tensor)
+                                             else a for a in args]))
             return real_glue[name](*args)
         return run
 
+    def replay(prog):
+        real_replay(prog)
+        for (mod, counter, _), n in zip(counts.COUNTERS, prog.per_call):
+            key = f"{mod.__name__}.{counter}"
+            calls["replayed"][key] = calls["replayed"].get(key, 0) + n
+
     if on:
         ntt_op.ntt_cuda, polyeval.eval_dot_cuda, polyeval.ps_inner_cuda = ntt, dot, ps
+        programs.Program.replay = replay
         if keep:
             for name in GLUE_WRAPPERS:
                 setattr(behz, name, glue(name))
@@ -481,6 +518,7 @@ def recording_kernels(calls: dict, on: bool = True, keep: bool = True):
         yield calls
     finally:
         ntt_op.ntt_cuda, polyeval.eval_dot_cuda, polyeval.ps_inner_cuda = real_ntt, real_dot, real_ps
+        programs.Program.replay = real_replay
         for name, f in real_glue.items():
             setattr(behz, name, f)
 
@@ -498,7 +536,72 @@ def strided_copy(t):
 
 
 def kernel_calls() -> dict:
-    return {"ntt": [], "eval_dot": [], "ps_inner": [], "glue": []}
+    return {"ntt": [], "eval_dot": [], "ps_inner": [], "glue": [], "replayed": {}}
+
+
+# the counters of the kernels whose every call phases 9, 10 and 13 record
+# (``ops/counts.py`` names), by the name in ``kernel_calls``
+RECORDED_COUNTERS = {"ntt": "apsu_tpu_torch.ops.ntt.launches",
+                     "ps_inner": "apsu_tpu_torch.ops.polyeval.launches",
+                     "eval_dot": "apsu_tpu_torch.ops.polyeval.dot_launches"}
+
+
+def recorded_launches(recs: list) -> dict:
+    """The launches that ``recording_kernels`` saw in ``recs`` (one
+    ``kernel_calls`` dict a process): its recorded calls plus what its
+    program replays launched, by kernel."""
+    return {k: sum(len(rec[k]) + rec["replayed"].get(c, 0) for rec in recs)
+            for k, c in RECORDED_COUNTERS.items()}
+
+
+def all_launches() -> dict:
+    """Every protocol kernel's launch count, by the name in the ``kernels`` line."""
+    from apsu_tpu_torch.ops import ntt as ntt_op
+    from apsu_tpu_torch.ops import polyeval
+
+    return {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches,
+            "ps_inner": polyeval.launches, **glue_launches()}
+
+
+def reset_launches() -> None:
+    from apsu_tpu_torch.ops import ntt as ntt_op
+    from apsu_tpu_torch.ops import polyeval
+
+    ntt_op.launches = polyeval.launches = polyeval.dot_launches = 0
+    reset_glue_launches()
+
+
+def query_runs(recv, req, calls, timings=None):
+    """``recv.run_query(req)``, each ended by a device sync and timed: once
+    cold (its programs built and captured), WARM times warm (replayed), once
+    under ``programs.eager()`` with every kernel call recorded into
+    ``calls``, and, with ``timings`` a dict, once more replayed with the
+    in-call split into it.  The launch counts start from 0.  Returns
+    (runs, launches, launches_per_query): each run (response, mask,
+    seconds, how), how one of "cold", "graph", "eager"; the launches of
+    all the runs; the launches of one replayed query."""
+    from apsu_tpu_torch.engine import programs
+
+    runs = []
+
+    def run(how, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resp = recv.run_query(req, **kw)
+        torch.cuda.synchronize()
+        runs.append((resp, recv.last_mask, time.perf_counter() - t0, how))
+
+    reset_launches()
+    run("cold")
+    after_cold = all_launches()
+    for _ in range(WARM):
+        run("graph")
+    per_query = {k: (v - after_cold[k]) / WARM for k, v in all_launches().items()}
+    with recording_kernels(calls), programs.eager():
+        run("eager")
+    if timings is not None:
+        run("graph", timings=timings)
+    return runs, all_launches(), per_query
 
 
 # the glue kernels: (name in the kernels line, source, the reference's code it
@@ -891,17 +994,27 @@ PROFILE_METHODS = ("operand_forms", "tensor_scaledown_fused", "premul_sum_rhs",
                    "multiply_sum_fused", "relinearize", "mod_switch_to", "to_ntt", "from_ntt",
                    "_scale_impl", "encode", "decode")
 PROFILE_FUNCTIONS = ("_ps_rows", "_run_schedule", "eval_matching_polys")
+# the query's programs (a replay's kernels go to its stage) and the host's
+# preparation of a query (validation, the mask drawn on the host, the upload)
+PROFILE_PROGRAMS = ("power_tensor", "ps_power_tensors", "matching", "matching_labeled",
+                    "ps_matching")
 # the hand-written kernels by the name of their __global__ function
 KERNEL_NAMES = ("ntt_kernel", "ps_inner_kernel", "eval_dot_kernel", "behz_lift_kernel",
                 "mont_mac_kernel", "behz_scaledown_kernel", "rns_divround_kernel")
+# the launch counter (ops/counts.py) of each, by its name in KERNEL_NAMES
+TRACED_COUNTERS = dict(zip(KERNEL_NAMES, (
+    "ntt.launches", "polyeval.launches", "polyeval.dot_launches", "behz.lift_launches",
+    "behz.mac_launches", "behz.scaledown_launches", "behz.divround_launches")))
 
 
 @contextlib.contextmanager
 def profile_spans():
-    """While active, each of ``PROFILE_METHODS``/``PROFILE_FUNCTIONS`` of the
-    imported package runs inside ``record_function("apsu:<name>")``."""
+    """While active, each of ``PROFILE_METHODS``/``PROFILE_FUNCTIONS``/
+    ``PROFILE_PROGRAMS`` and ``Receiver._prepare`` of the imported package
+    runs inside ``record_function("apsu:<name>")``."""
+    from apsu_tpu_torch.api.parties import Receiver
     from apsu_tpu_torch.core.bfv import BfvContext
-    from apsu_tpu_torch.engine import evaluator
+    from apsu_tpu_torch.engine import evaluator, programs
 
     def span(name, f):
         def run(*a, **k):
@@ -911,6 +1024,8 @@ def profile_spans():
 
     saved = [(BfvContext, n, getattr(BfvContext, n)) for n in PROFILE_METHODS]
     saved += [(evaluator, n, getattr(evaluator, n)) for n in PROFILE_FUNCTIONS]
+    saved += [(programs, n, getattr(programs, n)) for n in PROFILE_PROGRAMS]
+    saved.append((Receiver, "_prepare", Receiver._prepare))
     for owner, name, f in saved:
         setattr(owner, name, span(name, f))
     try:
@@ -940,8 +1055,9 @@ def device_ms_by_span(events) -> dict:
 
 def profile_query(recv, req) -> dict:
     """Device time by kernel name over one warm query (torch.profiler), the
-    plain PyTorch ops' by the port function that ran them (``profile_spans``),
-    and the device's busy share of the query's wall time."""
+    plain PyTorch ops' by the port function that ran them (``profile_spans``;
+    a program's replayed kernels are linked to no span), each span's host
+    time, and the device's busy share of the query's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -965,6 +1081,8 @@ def profile_query(recv, req) -> dict:
            "device_idle_share": 1 - busy_ms / wall_ms, "hand_written_kernels": ours,
            "plain_device_ms": busy_ms - hand_ms, "kernels_launched": sum(e.count for e in events),
            "by_function": device_ms_by_span(prof.events()),
+           "host_ms_by_span": {e.key[5:]: e.cpu_time_total / 1e3 for e in prof.key_averages()
+                               if e.key.startswith("apsu:") and e.device_type != DeviceType.CUDA},
            "top": [{"name": e.key[:90], "device_ms": e.self_device_time_total / 1e3,
                     "count": e.count} for e in top]}
     emit(res)
@@ -1116,7 +1234,6 @@ def main() -> int:
     from apsu_tpu_torch.db.measured_levels import query_level
     from apsu_tpu_torch.db.receiver_db import ReceiverDB
     from apsu_tpu_torch.ops import _build, polyeval
-    from apsu_tpu_torch.ops import ntt as ntt_op
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1208,33 +1325,24 @@ def main() -> int:
         false = int((~lane_match & eq).sum())
         return matched, wrong, false
 
-    # one cold query, WARM warm ones (the NTT shapes of the last recorded),
-    # and one with the in-call split; each keeps its response and its mask
-    queries = WARM + 2
-    runs = []
+    # one cold query (its programs captured), WARM replayed ones, one
+    # recorded under eager() and one replayed with the in-call split; each
+    # keeps its response and its mask
     timings = {}
-    ntt_op.launches = 0
-    polyeval.launches = 0
-    reset_glue_launches()
-    for i in range(queries):
-        with recording_kernels(calls, on=i == WARM):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            resp = recv.run_query(req, timings=timings if i == queries - 1 else None)
-            torch.cuda.synchronize()
-            runs.append((resp, recv.last_mask, time.perf_counter() - t0))
-    launches = {"ntt": ntt_op.launches, "ps_inner": polyeval.launches, **glue_launches()}
-    oracles = [oracle(resp, mask) for resp, mask, _ in runs]
-    # control: the last warm response against the split query's mask
+    runs, launches, per_query = query_runs(recv, req, calls, timings)
+    launches = {k: launches[k] for k in ("ntt", "ps_inner", *glue_launches())}
+    oracles = [oracle(resp, mask) for resp, mask, *_ in runs]
+    # control: the recorded response against the split query's mask
     control = oracle(runs[-2][0], runs[-1][1])
-    warm = [s for _, _, s in runs[1: WARM + 1]]
+    warm = [s for _, _, s, how in runs[:-1] if how == "graph"]
     emit({"first_query_s": runs[0][2], "warm_query_s": warm, "warm_best_s": min(warm),
+          "eager_recorded_query_s": runs[-2][2],
           "bundles_per_s": B * C / min(warm), "powers_s": timings["powers_s"],
-          "eval_s": timings["eval_s"], "queries": queries,
+          "eval_s": timings["eval_s"], "queries": [how for *_, how in runs],
           "oracle_per_query": [list(o) for o in oracles], "control_other_mask": list(control),
-          "launches": launches, "launches_per_query": {k: v / queries for k, v in launches.items()},
-          "result_shape": list(resp.results.shape),
-          "result_checksums": [int(r.results.to(torch.int64).sum()) for r, _, _ in runs],
+          "launches": launches, "launches_per_query": per_query,
+          "result_shape": list(runs[-1][0].results.shape),
+          "result_checksums": [int(r.results.to(torch.int64).sum()) for r, *_ in runs],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     if any(wrong or false or matched == 0 for matched, wrong, false in oracles):
         raise AssertionError("planted-match oracle failed")
@@ -1257,18 +1365,22 @@ def main() -> int:
     ps = check_ps_inner(low, cache5, q, "16M-4096 warm query (DB cache)")
 
     # -- phase 12, first set: the sharded receiver on phase 4's DB -----------
+    def exact16(resp, mask):
+        matched, wrong, false = oracle(resp, mask)
+        return matched > 0 and wrong == 0 and false == 0
+
     t0 = time.perf_counter()
-    shard16 = sharded_path(
-        "16M-4096", params, db, req,
-        lambda resp, mask: (lambda m, w, f: m > 0 and w == 0 and f == 0)(*oracle(resp, mask)),
-        args.seed, gen, ceil["ceilings"])
+    shard16 = sharded_path("16M-4096", params, db, req, exact16, args.seed, gen,
+                           ceil["ceilings"])
     emit({"phase_wall_s": {"sharded_16M-4096": time.perf_counter() - t0}})
 
     if args.profile:
         profile_query(recv, req)
+    # -- phase 15, first path: the query's programs against eager() ----------
+    progs = {"16M-4096": programs_path("16M-4096", params, db, req, exact16, args.seed)}
     # release the PS path's 4 GB cache before the next path (the recorded
     # K2 call holds a view of it)
-    del recv, req, db, cache5, low, runs, resp, calls
+    del recv, req, db, cache5, low, runs, calls
     torch.cuda.empty_cache()
 
     # -- phase 6: the in-process PSU at 1M-2048-cmp (and phase 12 on its DB) --
@@ -1311,6 +1423,10 @@ def main() -> int:
     psu256 = psu_path(args, gen, SMALL_QUERY_SET, ceil["ceilings"], query_items=SMALL_QUERY,
                       common_items=SMALL_COMMON)
     emit({"phase_wall_s": {f"psu_{SMALL_QUERY_SET}": time.perf_counter() - t3}})
+    progs.update({"1M-2048-cmp": psu["programs"], "1M-2048-com": psu_ps["programs"],
+                  f"labeled_{LABELED_SET}": lab["programs"], SMALL_QUERY_SET: psu256["programs"]})
+    emit({"programs_summary": {path: {k: r[k] for k in PROGRAM_SUMMARY} for path, r in progs.items()},
+          "gpu": GPU})
     if args.compare_ntt:
         torch.cuda.empty_cache()
         compare_ntt(args.compare_ntt, gen)
@@ -2316,8 +2432,6 @@ def psu_path(args, gen, name: str, ceilings: dict, sharded: bool = False,
     from apsu_tpu_torch.core.params import PSUParams
     from apsu_tpu_torch.db.receiver_db import ReceiverDB
     from apsu_tpu_torch.mpc.oprf import DebugOprf
-    from apsu_tpu_torch.ops import ntt as ntt_op
-    from apsu_tpu_torch.ops import polyeval
 
     params = PSUParams.load_file(str(ROOT / "parameters" / f"{name}.json"))
     ps = params.query_params.ps_low_degree > 0
@@ -2328,28 +2442,20 @@ def psu_path(args, gen, name: str, ceilings: dict, sharded: bool = False,
     want = q_set - db_set
     torch.cuda.reset_peak_memory_stats()
 
-    ntt_op.launches = 0
-    polyeval.dot_launches = 0
-    polyeval.launches = 0
-    reset_glue_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     db = ReceiverDB(params, DebugOprf(), device="cuda")
     stats = db.set_data(db_items)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    build_launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches,
-                      "ps_inner": polyeval.launches, **glue_launches()}
+    build_launches = all_launches()
     snd = Sender(params, DebugOprf(), rng=np.random.default_rng(args.seed + 2), device="cuda")
     recv = Receiver(params, db, rng=np.random.default_rng(args.seed + 3))
-    ntt_op.launches = 0
-    polyeval.dot_launches = 0
-    polyeval.launches = 0
-    reset_glue_launches()
+    reset_launches()
     res = run_psu(params, query, db_items, sender=snd, receiver=recv)
     torch.cuda.synchronize()
-    psu_launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches,
-                    "ps_inner": polyeval.launches, **glue_launches()}
+    psu_launches = all_launches()
     transferred, union = as_set(res.transferred), as_set(res.union)
     psu_ok = transferred == want and union == db_set | q_set and not transferred & db_set
     emit({"psu_path": name, "db_items": len(db_items), "query_items": len(query),
@@ -2367,21 +2473,8 @@ def psu_path(args, gen, name: str, ceilings: dict, sharded: bool = False,
 
     # warm queries on the same request: each response against its own mask
     req = snd.create_query(query)
-    calls = kernel_calls()  # the kernel launches of the last warm query
-    ntt_op.launches = 0
-    polyeval.dot_launches = 0
-    polyeval.launches = 0
-    reset_glue_launches()
-    runs = []
-    for i in range(WARM + 1):
-        with recording_kernels(calls, on=i == WARM):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            resp = recv.run_query(req)
-            torch.cuda.synchronize()
-            runs.append((resp, recv.last_mask, time.perf_counter() - t0))
-    query_launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches,
-                      "ps_inner": polyeval.launches, **glue_launches()}
+    calls = kernel_calls()  # the kernel launches of the recorded (eager) query
+    runs, query_launches, per_query = query_runs(recv, req, calls)
     launches = {k: psu_launches[k] + query_launches[k] for k in query_launches}
 
     def endgame(resp, mask):
@@ -2390,17 +2483,17 @@ def psu_path(args, gen, name: str, ceilings: dict, sharded: bool = False,
             snd.cuckoo.table, snd.cuckoo.filled)
         return as_set(got) == want, len(got)
 
-    oracles = [endgame(resp, mask) for resp, mask, _ in runs]
+    oracles = [endgame(resp, mask) for resp, mask, *_ in runs]
     control = endgame(runs[-1][0], runs[0][1])
-    warm = [t for _, _, t in runs[1:]]
+    warm = [t for _, _, t, how in runs if how == "graph"]
     emit({"psu_first_query_s": runs[0][2], "psu_warm_query_s": warm,
-          "psu_warm_best_s": min(warm), "bundles_per_s": db.coeff_cache.shape[0]
-          * db.coeff_cache.shape[1] / min(warm),
+          "psu_warm_best_s": min(warm), "eager_recorded_query_s": runs[-1][2],
+          "bundles_per_s": db.coeff_cache.shape[0] * db.coeff_cache.shape[1] / min(warm),
+          "queries": [how for *_, how in runs],
           "oracle_per_query": [list(o) for o in oracles], "control_other_mask": list(control),
-          "launches": launches, "launches_per_query": {k: v / (WARM + 1)
-                                                       for k, v in query_launches.items()},
+          "launches": launches, "launches_per_query": per_query,
           "result_shape": list(runs[-1][0].results.shape),
-          "result_checksums": [int(r.results.to(torch.int64).sum()) for r, _, _ in runs],
+          "result_checksums": [int(r.results.to(torch.int64).sum()) for r, *_ in runs],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     if not all(ok for ok, _ in oracles):
         raise AssertionError("warm-query oracle failed")
@@ -2430,13 +2523,18 @@ def psu_path(args, gen, name: str, ceilings: dict, sharded: bool = False,
     if args.profile:
         profile_query(recv, req)
     out = {"launches": launches, "ntt": ntt_summary, kernel: evals, "glue": glue,
-           "launches_per_query": {k: v / (WARM + 1) for k, v in query_launches.items()}}
+           "launches_per_query": per_query}
     if sharded:
         t0 = time.perf_counter()
         out["sharded"] = sharded_path(name, params, db, req,
                                       lambda resp, mask: endgame(resp, mask)[0], args.seed, gen,
                                       ceilings)
         emit({"phase_wall_s": {f"sharded_{name}": time.perf_counter() - t0}})
+    fresh = np.random.default_rng(args.seed + 4).integers(0, 1 << 64, size=(MUTATED_ITEMS, 2),
+                                                          dtype=np.uint64)
+    out["programs"] = programs_path(name, params, db, req,
+                                    lambda resp, mask: endgame(resp, mask)[0], args.seed,
+                                    fresh=fresh[[(int(x), int(y)) not in q_set for x, y in fresh]])
     return out
 
 
@@ -2627,7 +2725,7 @@ def cli_path(args, gen) -> dict:
         raise AssertionError("the second query did not go through OP_REBIND")
     if launches["ntt"] == 0 or launches["ps_inner"] == 0 or launches["eval_dot"]:
         raise AssertionError(f"the CLI path's launches are wrong: {launches}")
-    counted = {k: sum(len(rec[k]) for rec in recorded) for k in launches}
+    counted = recorded_launches(recorded)
     if counted != launches:
         raise AssertionError(f"recorded calls {counted} != logged launches {launches}")
     if rebind_mem["before"] - rebind_mem["after_release"] < rebind_mem["cache"] - 1e-3:
@@ -2816,7 +2914,7 @@ def db_lifecycle_path(args, gen) -> dict:
     emit(res)
     if launches["ntt"] == 0 or launches["ps_inner"] == 0 or launches["eval_dot"]:
         raise AssertionError(f"the DB lifecycle path's launches are wrong: {launches}")
-    counted = {k: len(calls[k]) for k in launches}
+    counted = recorded_launches([calls])
     if counted != launches:
         raise AssertionError(f"recorded calls {counted} != launches {launches}")
     torch.cuda.empty_cache()
@@ -2833,8 +2931,6 @@ def labeled_path(args, gen, ceilings) -> dict:
     from apsu_tpu_torch.db.receiver_db import ReceiverDB
     from apsu_tpu_torch.hash.items import LocFuncs, decrypt_label, encrypt_label
     from apsu_tpu_torch.mpc.oprf import DebugOprf
-    from apsu_tpu_torch.ops import ntt as ntt_op
-    from apsu_tpu_torch.ops import polyeval
 
     name = LABELED_SET
     params = PSUParams.load_file(str(ROOT / "parameters" / f"{name}.json"))
@@ -2864,8 +2960,7 @@ def labeled_path(args, gen, ceilings) -> dict:
     perm = rng.permutation(len(query))
     query, row = query[perm], row[perm]
 
-    ntt_op.launches = polyeval.launches = polyeval.dot_launches = 0
-    reset_glue_launches()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2873,8 +2968,7 @@ def labeled_path(args, gen, ceilings) -> dict:
     stats = db.set_data(db_items, labels=labels)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    build_launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches,
-                      "ps_inner": polyeval.launches, **glue_launches()}
+    build_launches = all_launches()
     levels = {"eval_lvl": db.eval_lvl, "labeled_eval_level": db.labeled_eval_level(),
               "unlabeled_eval_level": db.eval_level()}
     emit({"labeled_path": name, "db_items": DB_ITEMS, "query_items": len(query),
@@ -2914,31 +3008,20 @@ def labeled_path(args, gen, ceilings) -> dict:
             == plain[row[slot_q[s]]].tobytes() for s in np.flatnonzero(enc))
         return ok, int(matched.sum())
 
-    calls = kernel_calls()  # the kernel launches of the last warm query
-    ntt_op.launches = polyeval.launches = polyeval.dot_launches = 0
-    reset_glue_launches()
-    runs = []
-    for i in range(WARM + 1):
-        with recording_kernels(calls, on=i == WARM):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            resp = recv.run_query(req)
-            torch.cuda.synchronize()
-            runs.append((resp, recv.last_mask, time.perf_counter() - t0))
-    launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches,
-                "ps_inner": polyeval.launches, **glue_launches()}
-    oracles = [check(resp, mask) for resp, mask, _ in runs]
+    calls = kernel_calls()  # the kernel launches of the recorded (eager) query
+    runs, launches, per_query = query_runs(recv, req, calls)
+    oracles = [check(resp, mask) for resp, mask, *_ in runs]
     control = check(runs[-1][0], runs[0][1])
-    warm = [t for _, _, t in runs[1:]]
+    warm = [t for _, _, t, how in runs if how == "graph"]
     emit({"labeled_first_query_s": runs[0][2], "labeled_warm_query_s": warm,
-          "labeled_warm_best_s": min(warm), "expected_matches": int(in_db.sum()),
-          "encrypted_label_matches": int(enc.sum()),
+          "labeled_warm_best_s": min(warm), "eager_recorded_query_s": runs[-1][2],
+          "expected_matches": int(in_db.sum()), "encrypted_label_matches": int(enc.sum()),
+          "queries": [how for *_, how in runs],
           "oracle_per_query": [list(o) for o in oracles], "control_other_mask": list(control),
-          "launches": launches, "launches_per_query": {k: v / (WARM + 1)
-                                                       for k, v in launches.items()},
+          "launches": launches, "launches_per_query": per_query,
           "result_shape": list(runs[-1][0].results.shape),
-          "result_checksums": [int(r.results.to(torch.int64).sum()) for r, _, _ in runs],
-          "label_checksums": [int(r.label_results.to(torch.int64).sum()) for r, _, _ in runs],
+          "result_checksums": [int(r.results.to(torch.int64).sum()) for r, *_ in runs],
+          "label_checksums": [int(r.label_results.to(torch.int64).sum()) for r, *_ in runs],
           "noise_budget_bits": {   # host big-int CRT over bundle 0, cache 0 of the last query
               name: snd.bfv.noise_budget(Ciphertext(getattr(runs[-1][0], name)[0, 0],
                                                     is_ntt=False, level=db.eval_lvl), snd.sk)
@@ -2948,7 +3031,7 @@ def labeled_path(args, gen, ceilings) -> dict:
         raise AssertionError("labeled query: a matched item's label is wrong, or a match is")
     if control[0]:
         raise AssertionError("the labels checked against another query's mask passed")
-    if (launches["eval_dot"] != 2 * (WARM + 1) or launches["ntt"] == 0 or launches["ps_inner"]
+    if (per_query["eval_dot"] != 2 or launches["ntt"] == 0 or launches["ps_inner"]
             or not all(launches[g] for g, *_ in GLUE_KERNELS)):
         raise AssertionError(f"the labeled path's launches are wrong: {launches}")
 
@@ -2959,8 +3042,10 @@ def labeled_path(args, gen, ceilings) -> dict:
         powers = rand_residues(pw_shape, base.primes, gen)
         evals.append(check_eval_dot(powers, cache, base, f"{name} labeled query ({which} cache)"))
     glue = check_glue_calls(calls["glue"], f"{name} labeled warm query", ceilings)
+    progs = programs_path(name, params, db, req, lambda resp, mask: check(resp, mask)[0],
+                          args.seed)
     return {"launches": launches, "ntt": ntt_summary, "eval_dot": evals, "glue": glue,
-            "launches_per_query": {k: v / (WARM + 1) for k, v in launches.items()}}
+            "launches_per_query": per_query, "programs": progs}
 
 
 def logged(pattern, text):
@@ -2971,6 +3056,182 @@ def logged(pattern, text):
     return found[-1]
 
 
+PROGRAM_TURNS = 4   # eager/graphed pairs of phase 15, which goes first alternating
+MUTATED_ITEMS = 16  # fresh items phase 15 inserts into an item-built DB
+PROGRAM_SUMMARY = ("eager_best_s", "graph_best_s", "capture_ms", "memory_gb",
+                   "launches_equal", "launches_traced_in_replay", "profile_graph",
+                   "replay_device_ms", "idle_share_of_best_by_replays", "after_mutation",
+                   "checksums")
+
+
+TRACE_TRIES = 3     # traces of a graphed query phase 15 takes before it fails
+
+
+def traced_kernels(run) -> dict:
+    """The hand-written kernels that ``torch.profiler`` traced on the
+    device in ``run()``, by ``KERNEL_NAMES``: the second of two steps, the
+    first a warm-up (a trace's first step can lose the records of its first
+    kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    got = {}
+
+    def ready(prof):
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        got.update({k: sum(e.count for e in events if k in e.key) for k in KERNEL_NAMES})
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1), on_trace_ready=ready) as prof:
+        for _ in range(2):
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+    return got
+
+
+def programs_path(name, params, db, req, exact, seed, fresh=None) -> dict:
+    """Phase 15 at one path: ``Receiver.run_query`` through its programs
+    (``engine/programs.py``, CUDA graphs) against the same query under
+    ``programs.eager()``, on ``db`` and ``req``; ``exact(resp, mask)`` is the
+    path's oracle.
+
+    * The programs are dropped, then one eager query and one graphed query
+      under one mask seed: the graphed one captures its programs, and its
+      extra time over the best replayed query is the capture's cost;
+      ``torch.cuda.memory_reserved()`` (and allocated) is read after the
+      drop, after the eager query and after the capture.
+    * PROGRAM_TURNS pairs in turns (eager, graph, graph, eager, ...), the two
+      of a pair under one mask seed: bit for bit equal, both exact by the
+      oracle (a control against another mask must fail); the best of each.
+    * The launches of one replayed query (the hand-written kernels its
+      graphs hold, ``ops/counts.capture``) and of one eager query, equal.
+    * One graphed query under ``profile_query`` (busy, idle share,
+      kernels), and each program's replay alone timed by CUDA events.
+    * The hand-written kernels traced on the device in a graphed query
+      (``traced_kernels``) must be the eager query's launches, kernel by
+      kernel, in one of TRACE_TRIES traces: the profiler can drop records,
+      a graph that launches other kernels differs in every trace.
+    * With ``fresh`` items (none of them in the query), an in-place
+      mutation: ``db.insert_or_assign(fresh)`` keeps the programs unless
+      it grows the cache axis, and the next graphed query (its wall time
+      reported) equals an eager one bit for bit and passes the oracle.
+    * ``db.strip()``, a mutation that drops the programs and frees no DB
+      tensor, and the memory after it."""
+    from apsu_tpu_torch.api.parties import Receiver
+    from apsu_tpu_torch.engine import programs
+    from apsu_tpu_torch.ops import counts
+    from apsu_tpu_torch.tools import window_ms
+
+    def query(how, s):
+        recv = Receiver(params, db, rng=np.random.default_rng(s))
+        with programs.eager() if how == "eager" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resp = recv.run_query(req)
+            torch.cuda.synchronize()
+        return resp, recv.last_mask, time.perf_counter() - t0
+
+    def memory():
+        torch.cuda.synchronize()
+        return {"reserved": torch.cuda.memory_reserved() / 1e9,
+                "allocated": torch.cuda.memory_allocated() / 1e9}
+
+    def same(a, b):
+        (ra, ma, _), (rb, mb, _) = a, b
+        return (np.array_equal(ma, mb) and ra.eval_level == rb.eval_level
+                and torch.equal(ra.results, rb.results)
+                and (ra.label_results is None) == (rb.label_results is None)
+                and (ra.label_results is None or torch.equal(ra.label_results, rb.label_results)))
+
+    programs.drop(db.bfv)
+    torch.cuda.empty_cache()   # what earlier phases left cached, too
+    mem = {"after_drop": memory()}
+    eager0 = query("eager", seed + 300)
+    mem["after_eager_query"] = memory()
+    first = query("graph", seed + 300)
+    mem["after_capture"] = memory()
+    identical, oracles, checksums = [same(eager0, first)], [], []
+    times = {"eager": [], "graph": []}
+    for i in range(PROGRAM_TURNS):
+        order = ("eager", "graph") if i % 2 == 0 else ("graph", "eager")
+        got = {how: query(how, seed + 301 + i) for how in order}
+        for how in order:
+            times[how].append(got[how][2])
+        identical.append(same(got["eager"], got["graph"]))
+        oracles += [bool(exact(*got[how][:2])) for how in order]
+        checksums.append(int(got["graph"][0].results.to(torch.int64).sum()))
+    control = bool(exact(got["graph"][0], first[1]))   # the first query's mask
+    walls = {"first_graph_query_s": first[2], "first_eager_query_s": eager0[2]}
+    del got, first, eager0   # no response left to pin its segment below
+
+    names = [f"{mod.__name__.rsplit('.', 1)[1]}.{c}" for mod, c, _ in counts.COUNTERS]
+    launches = {}
+    for how in ("graph", "eager"):
+        before = counts.read()
+        query(how, seed + 310)
+        launches[how] = {n: v for n, v in zip(names, counts.since(before)) if v}
+    prof = profile_query(Receiver(params, db, rng=np.random.default_rng(seed + 311)), req)
+    traced_eager = {k: launches["eager"].get(c, 0) for k, c in TRACED_COUNTERS.items()}
+    traces = []
+    while len(traces) < TRACE_TRIES and (not traces or traces[-1] != traced_eager):
+        traces.append(traced_kernels(lambda: query("graph", seed + 312)))
+    traced = traces[-1]
+    replay_ms = {}
+    for (kind_key, *_), prog in db.bfv.programs.items():
+        replay_ms[kind_key[0]] = min(window_ms(prog.graph.replay)[1] for _ in range(3))
+    after_mutation = None
+    if fresh is not None:
+        kept, c_before = dict(db.bfv.programs), db.coeff_cache.shape[1]
+        db.insert_or_assign(fresh)
+        grew = db.coeff_cache.shape[1] > c_before
+        mutated = query("graph", seed + 320)
+        after_mutation = {
+            "inserted": len(fresh), "grew_cache_axis": grew,
+            "programs_kept": len(db.bfv.programs) == len(kept) and all(
+                db.bfv.programs.get(k) is prog for k, prog in kept.items()),
+            "first_graph_query_s": mutated[2]}
+        eager_m = query("eager", seed + 320)
+        after_mutation.update(eager_query_s=eager_m[2], bit_identical=same(mutated, eager_m),
+                              oracle_exact=bool(exact(*mutated[:2])))
+        del mutated, eager_m
+    db.strip()   # drops the programs and empties the cache (programs.drop)
+    mem["after_strip_drop"] = memory()
+    best = {how: min(t) for how, t in times.items()}
+    res = {"programs_path": name, "gpu": GPU, "turns": PROGRAM_TURNS,
+           "eager_s": times["eager"], "graph_s": times["graph"],
+           "eager_best_s": best["eager"], "graph_best_s": best["graph"],
+           **walls, "capture_ms": (walls["first_graph_query_s"] - best["graph"]) * 1e3,
+           "bit_identical": identical, "oracle_exact": oracles, "control_other_mask": control,
+           "checksums": checksums, "launches_per_replayed_query": launches["graph"],
+           "launches_per_eager_query": launches["eager"],
+           "launches_traced_in_replay": traced, "launches_traced_expected": traced_eager,
+           "trace_tries": len(traces),
+           "launches_equal": launches["graph"] == launches["eager"] and traced == traced_eager,
+           "after_mutation": after_mutation,
+           "profile_graph": {k: prof[k] for k in ("profile_wall_ms", "device_busy_ms",
+                                                  "device_idle_share", "kernels_launched",
+                                                  "host_ms_by_span")},
+           "idle_share_of_best_by_replays": 1 - sum(replay_ms.values()) / 1e3 / best["graph"],
+           "replay_device_ms": replay_ms, "memory_gb": mem}
+    emit(res)
+    if not all(identical):
+        raise AssertionError(f"a graphed response differs from the eager one ({name})")
+    if not all(oracles) or control:
+        raise AssertionError(f"the programs' oracle failed, or its control passed ({name})")
+    if not res["launches_equal"]:
+        raise AssertionError(f"a replayed query's launches (counted or traced) differ from "
+                             f"an eager one's ({name})")
+    if after_mutation is not None and not (
+            after_mutation["bit_identical"] and after_mutation["oracle_exact"]
+            and after_mutation["programs_kept"] != after_mutation["grew_cache_axis"]):
+        raise AssertionError(f"the query after an in-place mutation is wrong ({name}): "
+                             f"{after_mutation}")
+    if db.bfv.programs:
+        raise AssertionError(f"strip() left programs on the context ({name})")
+    return res
+
+
 def sharded_path(name, params, db, req, exact, seed, gen, ceilings) -> dict:
     """Phase 12 at one set: ``ShardedReceiver`` over a mesh of SHARDS[0]
     shard (the one-card deployment) and of SHARDS[1] shards on the one card,
@@ -2979,12 +3240,14 @@ def sharded_path(name, params, db, req, exact, seed, gen, ceilings) -> dict:
     direct response bit for bit and pass the set's oracle ``exact(resp,
     mask)``; a response read against another query's mask must fail it.  The
     direct and the 1-shard queries run in turns (direct, sharded, sharded,
-    direct, ...), timed; each sharded query's launches are counted from 0,
+    direct, ...), timed, the direct one under ``programs.eager()`` as the
+    sharded one runs; each sharded query's launches are counted from 0,
     and every kernel call of the second 5-shard query is held against its
     plain version (the glue kernels' also timed, ``check_glue_calls``).  The
     5-shard mesh runs its row ranges one after another on one card: its time
     is a check of the partition, not a deployment's."""
     from apsu_tpu_torch.api.parties import Receiver
+    from apsu_tpu_torch.engine import programs
     from apsu_tpu_torch.ops import ntt as ntt_op
     from apsu_tpu_torch.ops import polyeval
     from apsu_tpu_torch.parallel.mesh import make_mesh
@@ -3001,7 +3264,10 @@ def sharded_path(name, params, db, req, exact, seed, gen, ceilings) -> dict:
                 else ShardedReceiver(params, db, meshes[n], rng=rng))
         ntt_op.launches = polyeval.launches = polyeval.dot_launches = 0
         reset_glue_launches()
-        with recording_kernels(calls, on=record):
+        # the direct query runs eagerly, as the sharded one does (the mesh
+        # path has no programs yet), so the overhead compares like with like
+        with recording_kernels(calls, on=record), \
+                programs.eager() if n is None else contextlib.nullcontext():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             resp = recv.run_query(req)
@@ -3205,7 +3471,7 @@ def grid_path(args, gen) -> dict:
             raise AssertionError(f"a worker's rebind did not free the consumed cache first: {m}")
     if any(x["ps_inner"] == 0 for x in launches_by[:GRID_WORKERS]) or launches["eval_dot"]:
         raise AssertionError(f"the grid's launches are wrong: {launches_by}")
-    counted = {k: sum(len(rec[k]) for rec in recorded) for k in launches}
+    counted = recorded_launches(recorded)
     if counted != launches:
         raise AssertionError(f"recorded calls {counted} != logged launches {launches}")
     checks = replay_calls(recorded, gen, f"{name} worker grid")
