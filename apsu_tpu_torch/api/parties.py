@@ -12,6 +12,7 @@ a labeled DB its response also carries the blinded label results, which
 
 from __future__ import annotations
 
+import itertools
 import time
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -30,6 +31,7 @@ from apsu_tpu_torch.engine.powers import plan_query
 from apsu_tpu_torch.hash.cuckoo import CuckooTable, cuckoo_insert
 from apsu_tpu_torch.hash.encoding import felts_from_items, items_from_felts
 from apsu_tpu_torch.hash.items import LocFuncs
+from apsu_tpu_torch.utils.stopwatch import GLOBAL, host_bytes
 
 
 @dataclass
@@ -99,34 +101,44 @@ class Sender:
 
     def create_query(self, items: np.ndarray) -> QueryRequest:
         """items: [n, 2] uint64 hashed items -> encrypted query powers."""
+        with GLOBAL.span("create_query"):
+            return self._create_query(items)
+
+    def _create_query(self, items: np.ndarray) -> QueryRequest:
         p = self.params
         tp = p.table_params
-        self.cuckoo = cuckoo_insert(items, tp.table_size, tp.hash_func_count, locs=self.locs)
-        if self.oprf_factory is not None:
-            self.oprf = self.oprf_factory(self.cuckoo.table)
-        slots = np.arange(tp.table_size, dtype=np.int64)
-        prf = self.oprf.eval(self.cuckoo.table, slots)
-        felts = felts_from_items(prf, p.felts_per_item, p.item_bit_count_per_felt)
+        with GLOBAL.span("cuckoo"):
+            self.cuckoo = cuckoo_insert(items, tp.table_size, tp.hash_func_count,
+                                        locs=self.locs)
+        with GLOBAL.span("oprf"):
+            if self.oprf_factory is not None:
+                self.oprf = self.oprf_factory(self.cuckoo.table)
+            slots = np.arange(tp.table_size, dtype=np.int64)
+            prf = self.oprf.eval(self.cuckoo.table, slots)
+            felts = felts_from_items(prf, p.felts_per_item, p.item_bit_count_per_felt)
 
-        # slot vector per bundle index: lane (s % ipb)·fpi + f = felt f of slot s
-        B, N, ipb, fpi = p.bundle_idx_count, p.poly_degree, p.items_per_bundle, p.felts_per_item
-        qvec = np.zeros((B, N), dtype=np.uint32)
-        b = slots // ipb
-        lane = (slots % ipb) * fpi
-        for f in range(fpi):
-            qvec[b, lane + f] = felts[:, f]
+        with GLOBAL.span("encode"):
+            # slot vector per bundle index: lane (s % ipb)·fpi + f = felt f of slot s
+            B, N = p.bundle_idx_count, p.poly_degree
+            ipb, fpi = p.items_per_bundle, p.felts_per_item
+            qvec = np.zeros((B, N), dtype=np.uint32)
+            b = slots // ipb
+            lane = (slots % ipb) * fpi
+            for f in range(fpi):
+                qvec[b, lane + f] = felts[:, f]
 
-        # plaintext powers of the query vector, encoded and encrypted as one
-        # [P, B, N] batch
-        t = p.seal_params.plain_modulus
-        plist = tuple(p.query_params.query_powers)
-        stack = np.stack(
-            [_pow_mod(qvec.astype(np.uint64), s, t).astype(np.uint32) for s in plist]
-        )
-        pt = self.bfv.encode(stack)
-        a_seed = bytes(self.rng.bytes(32))
-        ct = self.bfv.encrypt_symmetric(pt, self.sk, self.rng, a_seed=a_seed,
-                                        level=self.query_lvl)  # [P, B, 2, L, N]
+            # plaintext powers of the query vector, encoded and encrypted as
+            # one [P, B, N] batch
+            t = p.seal_params.plain_modulus
+            plist = tuple(p.query_params.query_powers)
+            stack = np.stack(
+                [_pow_mod(qvec.astype(np.uint64), s, t).astype(np.uint32) for s in plist]
+            )
+            pt = self.bfv.encode(stack)
+        with GLOBAL.span("encrypt"):
+            a_seed = bytes(self.rng.bytes(32))
+            ct = self.bfv.encrypt_symmetric(pt, self.sk, self.rng, a_seed=a_seed,
+                                            level=self.query_lvl)  # [P, B, 2, L, N]
         return QueryRequest(
             power_list=plist,
             powers_data=ct.data,
@@ -179,6 +191,7 @@ class Receiver:
             params.query_params.ps_low_degree,
         )
         self.last_mask: Optional[np.ndarray] = None
+        self._ordinals = itertools.count()   # each query's id in the spans
 
     def validate_query(self, req: QueryRequest) -> None:
         """Source powers must match the parameter set, ciphertext batches
@@ -214,17 +227,22 @@ class Receiver:
         ``last_mask``).  Returns (source ciphertexts, relinearization key or
         None, mask)."""
         ql = self.query_lvl
-        self.validate_query(req)
-        data = self.bfv.tensor(req.powers_data)
+        with GLOBAL.span("prepare.validate"):
+            self.validate_query(req)
+        with GLOBAL.span("prepare.upload", nbytes=host_bytes(req.powers_data, req.relin_key)):
+            data = self.bfv.tensor(req.powers_data)
+            ksk = self.bfv.tensor(req.relin_key) if req.relin_key is not None else None
         cts = {
             s: Ciphertext(data[i], is_ntt=False, level=ql)
             for i, s in enumerate(req.power_list)
         }
-        rk = RelinKey(self.bfv.tensor(req.relin_key), ql) if req.relin_key is not None else None
+        rk = RelinKey(ksk, ql) if ksk is not None else None
         B, C = self.db.coeff_cache.shape[0], self.db.coeff_cache.shape[1]
         t = self.params.seal_params.plain_modulus
-        mask = self.rng.integers(0, t, size=(B, C, self.params.poly_degree),
-                                 dtype=np.uint64).astype(np.uint32)
+        with GLOBAL.span("prepare.mask"):
+            mask = self.rng.integers(0, t, size=(B, C, self.params.poly_degree),
+                                     dtype=np.uint64).astype(np.uint32)
+        GLOBAL.count("prepare.mask.words", mask.size)
         self.last_mask = mask
         return cts, rk, mask
 
@@ -233,7 +251,15 @@ class Receiver:
         power tensors, then the evaluation.  ``timings``: pass a dict to get
         an in-call phase split {"powers_s", "eval_s"} (a device sync is
         inserted between the two).  On a labeled DB the label blinding ρ is
-        drawn from ``rng`` after the mask."""
+        drawn from ``rng`` after the mask.  The query's spans carry the next
+        ordinal of this receiver as their query id (``utils/stopwatch.py``),
+        and so do those that follow until the next query, such as the
+        response's copy to the host."""
+        GLOBAL.query = next(self._ordinals)
+        with GLOBAL.span("query"):
+            return self._run_query(req, timings)
+
+    def _run_query(self, req: QueryRequest, timings: Optional[dict]) -> QueryResponse:
         p = self.params
         db, bfv, ql = self.db, self.bfv, self.query_lvl
         cts, rk, mask = self._prepare(req)
@@ -245,35 +271,37 @@ class Receiver:
 
         label_results = None
         t0 = time.perf_counter()
-        if self.plan.uses_ps:
-            low_ntt, high_coeff = programs.ps_power_tensors(
-                bfv, datas, req.power_list, ql, self.plan, ksk, db.eval_lvl,
-                at_eval=powers_at_eval(p), defer_relin=defer_relin(p))
-            last = high_coeff
-        else:
-            powers = programs.power_tensor(bfv, datas, req.power_list, ql, self.plan.low, ksk,
-                                           db.eval_lvl, at_eval=powers_at_eval(p))
-            last = powers
+        with GLOBAL.span("program.powers"):
+            if self.plan.uses_ps:
+                low_ntt, high_coeff = programs.ps_power_tensors(
+                    bfv, datas, req.power_list, ql, self.plan, ksk, db.eval_lvl,
+                    at_eval=powers_at_eval(p), defer_relin=defer_relin(p))
+                last = high_coeff
+            else:
+                powers = programs.power_tensor(bfv, datas, req.power_list, ql, self.plan.low,
+                                               ksk, db.eval_lvl, at_eval=powers_at_eval(p))
+                last = powers
         if timings is not None:
             synchronize(last)
             timings["powers_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
-        if self.plan.uses_ps:
-            res = programs.ps_matching(
-                bfv, low_ntt, high_coeff, db.coeff_cache, db.ps_const_polys, mask_t, ksk, ql,
-                p.query_params.ps_low_degree, db.result_lvl, p.table_params.max_items_per_bin,
-                eval_level=db.eval_lvl)
-            level = db.result_lvl
-        elif db.label_cache is not None:
-            rho = self.rng.integers(1, t, size=(B, C, N), dtype=np.uint64).astype(np.uint32)
-            res, label_results = programs.matching_labeled(
-                bfv, powers, db.coeff_cache, db.const_slots, mask_t, db.label_cache,
-                db.label0_slots, torch.from_numpy(rho.view(np.int32)), db.eval_lvl)
-            level = db.eval_lvl
-        else:
-            res = programs.matching(bfv, powers, db.coeff_cache, db.const_slots, mask_t,
-                                    db.eval_lvl)
-            level = db.eval_lvl
+        with GLOBAL.span("program.eval"):
+            if self.plan.uses_ps:
+                res = programs.ps_matching(
+                    bfv, low_ntt, high_coeff, db.coeff_cache, db.ps_const_polys, mask_t, ksk,
+                    ql, p.query_params.ps_low_degree, db.result_lvl,
+                    p.table_params.max_items_per_bin, eval_level=db.eval_lvl)
+                level = db.result_lvl
+            elif db.label_cache is not None:
+                rho = self.rng.integers(1, t, size=(B, C, N), dtype=np.uint64).astype(np.uint32)
+                res, label_results = programs.matching_labeled(
+                    bfv, powers, db.coeff_cache, db.const_slots, mask_t, db.label_cache,
+                    db.label0_slots, torch.from_numpy(rho.view(np.int32)), db.eval_lvl)
+                level = db.eval_lvl
+            else:
+                res = programs.matching(bfv, powers, db.coeff_cache, db.const_slots, mask_t,
+                                        db.eval_lvl)
+                level = db.eval_lvl
         if timings is not None:
             synchronize(res)
             timings["eval_s"] = time.perf_counter() - t0

@@ -19,6 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from apsu_tpu_torch.utils.stopwatch import GLOBAL
+
 MASK32 = 0xFFFFFFFF
 MASK16 = 0xFFFF
 I32 = torch.int32
@@ -58,8 +60,10 @@ def from_u32(x, device) -> torch.Tensor:
 
 
 def to_u32(x: torch.Tensor) -> np.ndarray:
-    """int32 residue tensor -> numpy uint32 (the reference's dtype)."""
-    return x.detach().cpu().numpy().astype(np.uint32)
+    """int32 residue tensor -> numpy uint32 (the reference's dtype), timed
+    as the span ``to_host``."""
+    with GLOBAL.span("to_host", nbytes=x.nbytes):
+        return x.detach().cpu().numpy().astype(np.uint32)
 
 
 def _w(x) -> torch.Tensor:

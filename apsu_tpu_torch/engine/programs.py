@@ -54,6 +54,7 @@ from apsu_tpu_torch.engine.evaluator import (
     ps_dims,
 )
 from apsu_tpu_torch.ops import counts
+from apsu_tpu_torch.utils.stopwatch import GLOBAL, host_bytes
 
 _eager = 0   # depth of eager() blocks; process-wide, as jax.disable_jit()
 
@@ -97,21 +98,24 @@ class Program:
         self.per_call = None   # the launches the graph holds, as counts.COUNTERS
 
     def __call__(self, bfv, inputs) -> tuple:
-        for buf, x in zip(self.buffers, inputs):
-            buf.copy_(x)
+        with GLOBAL.span("program.copy_in", nbytes=host_bytes(*inputs)):
+            for buf, x in zip(self.buffers, inputs):
+                buf.copy_(x)
         if bfv.device.type != "cuda":
             return _as_tuple(self.body(bfv, *self.buffers, *self.static))
         with torch.cuda.device(bfv.device):
             if self.graph is None:
-                self.graph, outs, self.per_call = counts.capture(
-                    lambda: self.body(bfv, *self.buffers, *self.static))
+                with GLOBAL.span("program.capture"):
+                    self.graph, outs, self.per_call = counts.capture(
+                        lambda: self.body(bfv, *self.buffers, *self.static))
                 self.outs = _as_tuple(outs)
             self.replay()
         return self.outs
 
     def replay(self) -> None:
-        self.graph.replay()
-        counts.add(self.per_call)
+        with GLOBAL.span("program.replay"):
+            self.graph.replay()
+            counts.add(self.per_call)
 
 
 def _as_tuple(out) -> tuple:
@@ -144,7 +148,10 @@ def run(bfv, kind_key: tuple, body, inputs, static=(), own: bool = True) -> tupl
         bfv.programs[full] = prog
     else:
         outs = prog(bfv, inputs)
-    return tuple(o.clone() for o in outs) if own else outs
+    if not own:
+        return outs
+    with GLOBAL.span("program.clone"):
+        return tuple(o.clone() for o in outs)
 
 
 def drop(bfv) -> None:

@@ -16,6 +16,7 @@ import re
 import torch
 
 from apsu_tpu_torch.ops import behz, ntt, polyeval, roofline
+from apsu_tpu_torch.utils.stopwatch import GLOBAL
 
 
 def _fn(name: str, general: bool = False) -> str:
@@ -116,21 +117,27 @@ def capture(fn, reps: int = 1):
     cache and builds every kernel before the capture, and its launches are
     counted.  ``per_replay`` is what the graph holds, each counter's kernel
     nodes, and a replay launches exactly these: a capture whose kernels
-    differ from ``reps`` times the eager call's raises."""
+    differ from ``reps`` times the eager call's raises.  The graph is
+    instantiated before it returns, so that its first replay only launches.
+    Spans: ``capture.warmup`` (the eager call), ``capture.record`` (the
+    Python pass under capture), ``capture.instantiate``."""
     stream = torch.cuda.current_stream()
     side = torch.cuda.Stream()
     side.wait_stream(stream)
     before = read()
-    with torch.cuda.stream(side):
+    with GLOBAL.span("capture.warmup"), torch.cuda.stream(side):
         fn()
     eager = [n * reps for n in since(before)]
     stream.wait_stream(side)
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-        for _ in range(reps):
-            outs = fn()
+    with GLOBAL.span("capture.record"):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            for _ in range(reps):
+                outs = fn()
     per_replay = in_graph(kernel_names(graph))
     if per_replay != eager:
         raise RuntimeError(f"a captured graph holds the launches {per_replay}, "
                            f"its eager calls made {eager} ({[c for _, c, _ in COUNTERS]})")
+    with GLOBAL.span("capture.instantiate"):
+        graph.instantiate()
     return graph, outs, per_replay

@@ -1,0 +1,16 @@
+"""Parties layer (``api/parties.py``): the median host time of
+``Receiver._prepare``'s uploads of the request (pageable host memory to the
+card), the port's span ``prepare.upload``
+(``apsu_tpu_torch/utils/stopwatch.py``), over the records of the run's
+queries."""
+
+import statistics
+
+
+def read(trace):
+    from apsu_tpu_torch.utils import stopwatch
+
+    ms = [(end - start) / 1e6
+          for name, start, end, _, query, _ in getattr(stopwatch.GLOBAL, "records", ())
+          if name == "prepare.upload" and query is not None]
+    return statistics.median(ms) if ms else None
