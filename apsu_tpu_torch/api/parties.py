@@ -13,6 +13,7 @@ a labeled DB its response also carries the blinded label results, which
 from __future__ import annotations
 
 import itertools
+import math
 import time
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -31,6 +32,8 @@ from apsu_tpu_torch.engine.powers import plan_query
 from apsu_tpu_torch.hash.cuckoo import CuckooTable, cuckoo_insert
 from apsu_tpu_torch.hash.encoding import felts_from_items, items_from_felts
 from apsu_tpu_torch.hash.items import LocFuncs
+from apsu_tpu_torch.mpc.prg import CsRng
+from apsu_tpu_torch.ops import ctr_mod
 from apsu_tpu_torch.utils.stopwatch import GLOBAL, host_bytes
 
 
@@ -57,11 +60,7 @@ class QueryResponse:
 
 
 def _default_rng(rng):
-    if rng is not None:
-        return rng
-    from apsu_tpu_torch.mpc.prg import CsRng
-
-    return CsRng()
+    return CsRng() if rng is None else rng
 
 
 class Sender:
@@ -179,7 +178,8 @@ class Receiver:
 
     def __init__(self, params: PSUParams, db: ReceiverDB, rng=None):
         """rng draws the result masks: a ``numpy.random.Generator`` or a
-        ``CsRng`` (the default, from OS entropy)."""
+        ``CsRng`` (the default, from OS entropy).  A ``CsRng``'s masks are
+        made where the DB lies (``_draw``), the same bits either way."""
         self.params = params
         self.db = db
         self.bfv = db.bfv
@@ -190,8 +190,20 @@ class Receiver:
             params.table_params.max_items_per_bin,
             params.query_params.ps_low_degree,
         )
-        self.last_mask: Optional[np.ndarray] = None
+        self._draws: Optional[ctr_mod.KeyStream] = None   # a CsRng's, where the DB lies
+        self._last_mask: Optional[np.ndarray] = None      # in host memory
+        self._mask_done = None   # a card mask's event after its copy to the host
         self._ordinals = itertools.count()   # each query's id in the spans
+
+    @property
+    def last_mask(self) -> Optional[np.ndarray]:
+        """The last query's mask [B, C, N] uint32 in host memory; a mask drawn
+        on the card is its copy, queued behind the draw, waited for here."""
+        if self._last_mask is None:
+            return None
+        if self._mask_done is not None:
+            self._mask_done.synchronize()
+        return self._last_mask
 
     def validate_query(self, req: QueryRequest) -> None:
         """Source powers must match the parameter set, ciphertext batches
@@ -222,8 +234,24 @@ class Receiver:
         if needs_relin and req.relin_key is None:
             raise ValueError("query requires relinearization keys")
 
+    def _draw(self, lo: int, span: int, shape, keep: bool = False) -> tuple:
+        """``rng.integers(lo, lo + span, size=shape)`` as an int32 tensor, and
+        with ``keep`` its uint32 copy in host memory (else None).  A ``CsRng``
+        reserves the words' bytes and ``ops/ctr_mod.py`` makes them on the
+        DB's device (the kernel on a card, which also queues the kept copy);
+        any other rng draws on the host.  Either way the bits and the stream
+        are the rng's own."""
+        if isinstance(self.rng, CsRng):
+            key, counter, offset = self.rng.reserve(8 * math.prod(shape))
+            if self._draws is None or self._draws.key is not key:
+                self._draws = ctr_mod.KeyStream(key, self.bfv.device)
+            return self._draws.draw(counter, offset, lo, span, shape, keep)
+        x = self.rng.integers(lo, lo + span, size=shape, dtype=np.uint64).astype(np.uint32)
+        return torch.from_numpy(x.view(np.int32)), (x if keep else None)
+
     def _prepare(self, req: QueryRequest):
-        """Validate ``req`` and draw the query's mask [B, C, N] (kept as
+        """Validate ``req`` and draw the query's mask [B, C, N] as int32 on
+        the DB's device for a ``CsRng``, in host memory otherwise (kept as
         ``last_mask``).  Returns (source ciphertexts, relinearization key or
         None, mask)."""
         ql = self.query_lvl
@@ -240,10 +268,11 @@ class Receiver:
         B, C = self.db.coeff_cache.shape[0], self.db.coeff_cache.shape[1]
         t = self.params.seal_params.plain_modulus
         with GLOBAL.span("prepare.mask"):
-            mask = self.rng.integers(0, t, size=(B, C, self.params.poly_degree),
-                                     dtype=np.uint64).astype(np.uint32)
-        GLOBAL.count("prepare.mask.words", mask.size)
-        self.last_mask = mask
+            mask, self._last_mask = self._draw(0, t, (B, C, self.params.poly_degree), keep=True)
+        self._mask_done = self._draws.done if mask.is_cuda else None
+        GLOBAL.count("prepare.mask.words", mask.numel())
+        if mask.is_cuda:
+            GLOBAL.count("prepare.mask.device", 1)
         return cts, rk, mask
 
     def run_query(self, req: QueryRequest, timings: Optional[dict] = None) -> QueryResponse:
@@ -267,7 +296,6 @@ class Receiver:
         t = p.seal_params.plain_modulus
         datas = [cts[s].data for s in req.power_list]
         ksk = rk.ksk if rk is not None else None
-        mask_t = torch.from_numpy(mask.view(np.int32))
 
         label_results = None
         t0 = time.perf_counter()
@@ -288,18 +316,18 @@ class Receiver:
         with GLOBAL.span("program.eval"):
             if self.plan.uses_ps:
                 res = programs.ps_matching(
-                    bfv, low_ntt, high_coeff, db.coeff_cache, db.ps_const_polys, mask_t, ksk,
+                    bfv, low_ntt, high_coeff, db.coeff_cache, db.ps_const_polys, mask, ksk,
                     ql, p.query_params.ps_low_degree, db.result_lvl,
                     p.table_params.max_items_per_bin, eval_level=db.eval_lvl)
                 level = db.result_lvl
             elif db.label_cache is not None:
-                rho = self.rng.integers(1, t, size=(B, C, N), dtype=np.uint64).astype(np.uint32)
+                rho = self._draw(1, t - 1, (B, C, N))[0]
                 res, label_results = programs.matching_labeled(
-                    bfv, powers, db.coeff_cache, db.const_slots, mask_t, db.label_cache,
-                    db.label0_slots, torch.from_numpy(rho.view(np.int32)), db.eval_lvl)
+                    bfv, powers, db.coeff_cache, db.const_slots, mask, db.label_cache,
+                    db.label0_slots, rho, db.eval_lvl)
                 level = db.eval_lvl
             else:
-                res = programs.matching(bfv, powers, db.coeff_cache, db.const_slots, mask_t,
+                res = programs.matching(bfv, powers, db.coeff_cache, db.const_slots, mask,
                                         db.eval_lvl)
                 level = db.eval_lvl
         if timings is not None:

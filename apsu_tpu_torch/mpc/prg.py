@@ -23,21 +23,46 @@ class CsRng:
     """Cryptographically secure RNG exposing the ``numpy.random.Generator``
     subset the framework draws from (``integers`` / ``permutation`` /
     ``bytes`` / ``normal``), backed by AES-256-CTR keyed from OS entropy.
-    Deterministic tests pass an explicit key of at least 16 bytes."""
+    Deterministic tests pass an explicit key of at least 16 bytes.
+
+    ``reserve`` hands the next bytes of the stream to a drawer that makes
+    them elsewhere (the receiver's mask, on the card: ``ops/ctr_mod.py``);
+    every draw after it reads on from the byte after them, so the stream is
+    the same whichever bytes were made where."""
 
     def __init__(self, key: bytes | None = None):
-        from cryptography.hazmat.primitives.ciphers import Cipher, algorithms, modes
-
         if key is None:
             key = os.urandom(32)
         if len(key) < 16:
             raise ValueError("CsRng key must be at least 128 bits")
-        self._enc = Cipher(
-            algorithms.AES(key.ljust(32, b"\0")[:32]), modes.CTR(b"\0" * 16)
-        ).encryptor()
+        self._key = key.ljust(32, b"\0")[:32]
+        self._pos = 0   # the bytes of the stream drawn or reserved so far
+        self._enc = self._enter()
+
+    def _enter(self):
+        """An AES-CTR encryptor positioned at byte ``_pos`` of the stream."""
+        from cryptography.hazmat.primitives.ciphers import Cipher, algorithms, modes
+
+        block, skip = divmod(self._pos, 16)
+        enc = Cipher(algorithms.AES(self._key), modes.CTR(block.to_bytes(16, "big"))).encryptor()
+        enc.update(b"\0" * skip)
+        return enc
 
     def bytes(self, n: int) -> bytes:
+        if self._enc is None:   # the first draw after a reservation
+            self._enc = self._enter()
+        self._pos += int(n)
         return self._enc.update(b"\0" * int(n))
+
+    def reserve(self, n: int) -> tuple:
+        """Pass over the next ``n`` bytes of the stream without making them:
+        ``(key, counter, offset)``, the 32-byte AES-256 key, the number of
+        the CTR block that holds their first byte and that byte's place in
+        it (0-15).  ``ops/ctr_mod.py`` makes them from these."""
+        counter, offset = divmod(self._pos, 16)
+        self._pos += int(n)
+        self._enc = None
+        return self._key, counter, offset
 
     def spawn(self) -> "CsRng":
         """Independent child stream (forward-secure split)."""

@@ -15,7 +15,7 @@ import re
 
 import torch
 
-from apsu_tpu_torch.ops import behz, ntt, polyeval, roofline
+from apsu_tpu_torch.ops import behz, ctr_mod, ntt, polyeval, roofline
 from apsu_tpu_torch.utils.stopwatch import GLOBAL
 
 
@@ -39,7 +39,8 @@ COUNTERS = ((ntt, "launches", _fn("ntt_kernel")),
             (behz, "scaledown_launches", _fn("behz_scaledown_kernel")),
             (behz, "divround_launches", _fn("rns_divround_kernel")),
             (behz, "lift_general_launches", _fn("behz_lift_kernel", general=True)),
-            (behz, "scaledown_general_launches", _fn("behz_scaledown_kernel", general=True)))
+            (behz, "scaledown_general_launches", _fn("behz_scaledown_kernel", general=True)),
+            (ctr_mod, "launches", _fn("ctr_mod_kernel")))
 
 
 def read() -> list:

@@ -23,7 +23,13 @@ Phases, each printing one JSON object per line:
    eval primes; the dot product at its ``DOT_CASES``: the 1M-2048-cmp warm
    query's shape on its primes and on 30-bit primes, the labeled 1M-1-32
    shape, a 5-shard 1M-2048-cmp shard, 520 planes on 30-bit primes, and
-   the 1M-256-288 warm query's shape);
+   the 1M-256-288 warm query's shape; the mask draw M1 at both benchmark
+   cells' mask shapes, for the mask's range and the labeled path's rho,
+   from counters that carry across 2^32 and 2^64, each shape timed beside
+   its bound by bytes, integer operations and shared-memory words, the
+   kept draw (the kernel also storing the words into pinned host memory)
+   beside that bound and the host link's, and the host's cost of one kept
+   draw);
 3. the ceilings: the ceiling probe (``vpu_loop``, K9) and the per-call floor
    (``add_one``, K10) against their plain versions, bit for bit; then the
    port's two measuring tools (``apsu_tpu_torch.tools.vpu_roofline``: the
@@ -43,7 +49,10 @@ Phases, each printing one JSON object per line:
    planted-match oracle on every response: each planted match decrypts to
    that query's mask and no non-match does (and, as a control, a response
    checked against another query's mask must fail); the launches per query
-   are a replayed query's, which counts what an eager one launches;
+   are a replayed query's, which counts what an eager one launches; then a
+   ``CsRng`` receiver runs the query WARM + 1 times with M1's launch count
+   set to 0: each mask is one launch, equals the host draw of its stream
+   and passes the oracle (``csrng_path``);
 5. the kernels again against their plain versions at every shape the
    recorded PS query launched them with, and their per-query device time and bound;
    the glue kernels G1-G4 (``ops/behz.py``) at every call of that query, on
@@ -166,7 +175,8 @@ Phases, each printing one JSON object per line:
    with the package's kernels at every G call of phase 5's and phase 6's
    warm queries (``compare_glue``);
 17. the ``kernels`` summary line (K1-K3, K9, K10, then G1-G4 with their
-   launches on the in-process paths), then ``{"ok": true, "device": ...}``.
+   launches on the in-process paths, then M1 with its launches on the
+   ``CsRng`` path), then ``{"ok": true, "device": ...}``.
 With ``--profile``, one warm query of phases 5, 6, 7 and 14 runs under
 ``torch.profiler`` (``profile_query``: device time by kernel and by the
 port function around each launch, each port span's host time, busy and
@@ -245,6 +255,20 @@ SMALL_QUERY = 256
 SMALL_COMMON = 128
 # the card's name and power limit (nvidia-smi), named beside every time
 GPU = ""
+# M1, the mask draw (ops/ctr_mod.py): each cell's mask shape and plain
+# modulus t, drawn as the mask's (0, t) and as the labeled path's rho
+# (1, t - 1), from counters whose blocks carry across 2^32 and 2^64, at
+# byte offsets 0, 8 and 3 into the first block
+MASK_SHAPES = {"16M-4096": ((4, 6, 8192), 2277377), "1M-2048-cmp": ((5, 15, 4096), 40961)}
+MASK_STARTS = ((0, 0), ((1 << 32) - 5, 8), ((1 << 64) - 5, 3))
+# H100 SXM shared memory: 32 banks of 4 bytes a clock on each of 132 SMs;
+# its host link, PCIe Gen5 x16, in one direction
+SMEM_WORDS_PER_S = 132 * 32 * 1.98e9
+PCIE_BYTES_PER_S = 64e9
+# csrc/ctr_mod.cu: threads a block (each makes one AES block, two words, a
+# step), its grid's bound, its table's words (Te0 once for each bank) and
+# AES-256's table lookups a block (14 rounds of 16)
+M1_THREADS, M1_MAX_GRID, M1_TABLE, M1_LOOKUPS = 256, 1024, 256 * 32, 14 * 16
 
 
 def emit(obj) -> None:
@@ -326,6 +350,133 @@ def dot_work(powers_shape, cache_shape):
 
 def dot_bound_ms(powers_shape, cache_shape):
     return bound_ms(*dot_work(powers_shape, cache_shape)[::2])
+
+
+def m1_thread_ops(lib) -> int:
+    """M1's integer instructions, each counted once (its static SASS, less
+    loads, stores, control and the uniform datapath's): a floor on what one
+    thread runs in a step, one AES block and two words."""
+    f = sass_functions(lib, "ctr_mod_kernel")[0]
+    ops = re.findall(r"^\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", f, re.M)
+    skip = ("LD", "ST", "BRA", "EXIT", "BAR", "S2R", "CS2R", "NOP", "BSSY", "BSYNC", "RET", "U")
+    return sum(not o.startswith(skip) for o in ops)
+
+
+def m1_work(n, offset, thread_ops):
+    """Bytes, integer operations and shared-memory words of one M1 call of
+    ``n`` words at byte ``offset``: a step of a block makes 256 AES blocks
+    (one more at an offset) and 512 words, each block of the grid fills the
+    table once, a block's keystream is stored as 4 words and each word reads
+    3; the words are written and Te0 read once a block."""
+    steps = -(-n // (2 * M1_THREADS))
+    grid = min(steps, M1_MAX_GRID)
+    blocks = steps * (M1_THREADS + (1 if offset else 0))
+    nbytes = 4 * n + 4 * 256 * grid
+    smem = blocks * (M1_LOOKUPS + 4) + 3 * n + grid * M1_TABLE
+    return nbytes, steps * M1_THREADS * thread_ops, smem
+
+
+def m1_bound_ms(work):
+    """Least time of ``m1_work``'s call: its bytes at the HBM rate, its
+    integer operations at the INT32 rate or its shared-memory words at the
+    banks' rate, the largest, and which it is."""
+    nbytes, ops, smem = work
+    t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / INT32_OPS_PER_S * 1e3,
+         "shared memory": smem / SMEM_WORDS_PER_S * 1e3}
+    by = max(t, key=t.get)
+    return t[by], by
+
+
+def check_ctr_mod(seed) -> dict:
+    """M1 against its plain version, bit for bit, at each cell's mask shape,
+    for the mask's (0, t) and rho's (1, t - 1), from each of ``MASK_STARTS``
+    under one key, and its kept draw's host copy too; each shape timed
+    graph-replayed and eager beside its bound, the kept draw (the kernel
+    also storing each word into pinned host memory, as ``Receiver._prepare``
+    draws the mask) eager beside that bound and the host link's, and the
+    host's cost of one kept draw."""
+    from apsu_tpu_torch.ops import _build, ctr_mod
+    from apsu_tpu_torch.tools import cuda_ms, graph_ms
+
+    key = seed.to_bytes(8, "little", signed=True) + bytes(range(24))
+    ks = ctr_mod.KeyStream(key, "cuda")
+    thread_ops = m1_thread_ops(_build.build())
+    cases, err = [], 0
+    for cell, (shape, t) in MASK_SHAPES.items():
+        n = int(np.prod(shape))
+        for counter, offset in MASK_STARTS:
+            for lo, span in ((0, t), (1, t - 1)):
+                words, host = ks.draw(counter, offset, lo, span, shape, keep=True)
+                ks.done.synchronize()
+                got = words.cpu().numpy().ravel()
+                want = ctr_mod.ctr_mod_plain(key, counter, offset, lo, span, n)
+                e = int(np.abs(got.astype(np.int64) - want).max())
+                if e > TOLERANCE or not (np.array_equal(got, want)
+                                         and np.array_equal(host.ravel().view(np.int32), want)):
+                    raise AssertionError(f"M1 != plain ({cell}, counter {counter}, offset "
+                                         f"{offset}, ({lo}, {span})): {e}")
+                err = max(err, e)
+        counter, offset = MASK_STARTS[1]
+        work = m1_work(n, offset, thread_ops)
+        b_ms, b_by = m1_bound_ms(work)
+        torch.cuda.synchronize()
+        t0, reps = time.perf_counter(), 200
+        for _ in range(reps):
+            ks.draw(counter, offset, 0, t, shape, keep=True)
+        host_us = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        cases.append({
+            "cell": cell, "shape": list(shape), "t": t, "offset": offset,
+            "ms": graph_ms(lambda: ks.draw(counter, offset, 0, t, shape)),
+            "eager_ms": cuda_ms(lambda: ks.draw(counter, offset, 0, t, shape), reps=20),
+            "kept_eager_ms": cuda_ms(lambda: ks.draw(counter, offset, 0, t, shape, keep=True),
+                                     reps=20),
+            "kept_bound_ms": max(b_ms, 4 * n / PCIE_BYTES_PER_S * 1e3),
+            "plain_ms": cuda_ms(lambda: ctr_mod.ctr_mod_plain(key, counter, offset, 0, t, n),
+                                reps=2),
+            "bound_ms": b_ms, "bound_by": b_by, "work": list(work),
+            "host_us_kept_draw": host_us})
+    out = {"check": "ctr_mod", "max_abs_err": err, "tolerance": TOLERANCE,
+           "thread_ops": thread_ops, "cases": cases, "gpu": GPU}
+    emit(out)
+    return out
+
+
+def csrng_path(params, db, req, oracle, seed) -> dict:
+    """M1 on the PS path: a ``CsRng`` receiver on phase 4's DB runs the
+    query WARM + 1 times with M1's launch count set to 0 before them; each
+    query's mask is one launch (``prepare.mask.device`` counts it), equals
+    the host draw of the same stream and passes the planted-match oracle."""
+    from apsu_tpu_torch.api.parties import Receiver
+    from apsu_tpu_torch.mpc.prg import CsRng
+    from apsu_tpu_torch.ops import ctr_mod
+    from apsu_tpu_torch.utils.stopwatch import GLOBAL
+
+    key = seed.to_bytes(8, "little", signed=True) + b"chip-smoke mask key 24 b"
+    recv, host = Receiver(params, db, rng=CsRng(key)), CsRng(key)
+    t = params.seal_params.plain_modulus
+    queries = WARM + 1
+    drawn = GLOBAL.counts().get("prepare.mask.device", 0)
+    ctr_mod.launches = 0
+    oracles, same = [], []
+    for _ in range(queries):
+        resp = recv.run_query(req)
+        mask = recv.last_mask
+        want = host.integers(0, t, size=mask.shape, dtype=np.uint64).astype(np.uint32)
+        same.append(bool(np.array_equal(mask, want)))
+        oracles.append(list(oracle(resp, mask)))
+    out = {"csrng_path": "16M-4096", "queries": queries, "launches": ctr_mod.launches,
+           "mask_device_count": GLOBAL.counts().get("prepare.mask.device", 0) - drawn,
+           "masks_equal_host_draw": same, "oracle_per_query": oracles}
+    emit(out)
+    if not all(same):
+        raise AssertionError("a card-drawn mask differs from the host draw of its stream")
+    if any(wrong or false or matched == 0 for matched, wrong, false in oracles):
+        raise AssertionError("planted-match oracle failed on a card-drawn mask")
+    if out["launches"] != queries or out["mask_device_count"] != queries:
+        raise AssertionError(f"M1 launched {out['launches']} times and counted "
+                             f"{out['mask_device_count']} masks for {queries} queries")
+    return out
 
 
 def check_ntt(tb, shape, gen, label):
@@ -1293,6 +1444,7 @@ def main() -> int:
     del low, cache, cache5
     dot_checks = check_dot_cases(gen)
     ps_checks = check_ps_wide_cases(gen)
+    m1 = check_ctr_mod(args.seed)
     torch.cuda.empty_cache()
 
     # -- phase 3: the ceilings (K9, K10 and the two measuring tools) ---------
@@ -1350,6 +1502,7 @@ def main() -> int:
         raise AssertionError("the oracle accepted a response checked against another mask")
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    m1_path = csrng_path(params, db, req, oracle, args.seed)
 
     # -- phase 5: kernels at every shape the warm query used -----------------
     ntt_ps = check_ntt_shapes(calls["ntt"], gen)
@@ -1563,6 +1716,20 @@ def main() -> int:
                      [psu_ps["glue"][name], psu256["glue"][name], lab["glue"][name],
                       shard16["glue"][name], psu["sharded"]["glue"][name]])
           for name, source, replaces, *_ in GLUE_KERNELS],
+        {"name": "ctr_mod", "id": "M1", "route": "cuda",
+         "source": "apsu_tpu_torch/csrc/ctr_mod.cu",
+         "replaces": "none: apsu_tpu/api/parties.py Receiver._prepare draws the mask on the "
+                     "host (CsRng.integers)",
+         "launches": m1_path["launches"],
+         "launches_by_path": {"ps_16M-4096_csrng": m1_path["launches"]},
+         "max_abs_err": m1["max_abs_err"], "tolerance": TOLERANCE,
+         **{k: m1["cases"][-1][k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                             "bound_by", "shape")},
+         "library_ms": None, "thread_ops": m1["thread_ops"],
+         "other_cases": [{k: c[k] for k in ("cell", "shape", "ms", "eager_ms", "plain_ms",
+                                            "bound_ms", "bound_by", "kept_eager_ms",
+                                            "kept_bound_ms", "host_us_kept_draw")}
+                         for c in m1["cases"]]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,7 @@ from apsu_tpu_torch.core.params import PSUParams
 from apsu_tpu_torch.core.rns import ExactLiftConv, RnsBase, ScaleDown
 from apsu_tpu_torch.device import canonical
 from apsu_tpu_torch.ops import ntt as ntt_op
-from apsu_tpu_torch.ops import behz, polyeval, roofline
+from apsu_tpu_torch.ops import behz, ctr_mod, polyeval, roofline
 
 
 def _need_cuda():
@@ -408,6 +408,128 @@ def test_sharded_receiver_across_cards_matches_direct(name):
     assert launched >= len(busy)
     assert got.results.device == want.results.device
     assert torch.equal(got.results, want.results)
+
+
+# the mask draw (ops/ctr_mod.py): the kernel against its plain version at
+# both cells' mask shapes (16M-4096: [4, 6, 8192], t = 2277377; 1M-2048-cmp:
+# [5, 15, 4096], t = 40961), the mask's (0, t) and the labeled path's ρ,
+# (1, t - 1), from counters whose blocks carry across 2^32 and 2^64
+MASK_CELLS = {"16M-4096": ((4, 6, 8192), 2277377), "1M-2048-cmp": ((5, 15, 4096), 40961)}
+MASK_KEY = bytes(range(3, 35))
+MASK_LABELED = {  # tests/test_psu_e2e.py:small_params(), with labels
+    "table_params": {"hash_func_count": 2, "table_size": 64, "max_items_per_bin": 8},
+    "item_params": {"felts_per_item": 4},
+    "query_params": {"ps_low_degree": 0, "query_powers": [1, 2, 3, 4, 5, 6, 7, 8]},
+    "seal_params": {"plain_modulus": 65537, "poly_modulus_degree": 256,
+                    "coeff_modulus_bits": [40, 40, 30]},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", list(MASK_CELLS))
+@pytest.mark.parametrize("counter", [0, (1 << 32) - 7, (1 << 64) - 7, (3 << 64) + 12345],
+                         ids=["zero", "carry32", "carry64", "high"])
+@pytest.mark.parametrize("offset", [0, 8])
+def test_ctr_mod_kernel_matches_plain(cell, counter, offset):
+    _need_cuda()
+    shape, t = MASK_CELLS[cell]
+    n = int(np.prod(shape))
+    for lo, span in ((0, t), (1, t - 1)):
+        got = ctr_mod.ctr_mod(MASK_KEY, counter, offset, lo, span, shape, "cuda")
+        assert got.shape == shape and got.dtype == torch.int32
+        want = ctr_mod.ctr_mod_plain(MASK_KEY, counter, offset, lo, span, n)
+        assert np.array_equal(got.cpu().numpy().ravel(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 511, 1000, 600_001])
+def test_ctr_mod_kernel_every_offset(n):
+    """Every byte offset into the first block, word counts that leave a
+    block's last step ragged and one past the grid's bound (steps looped
+    inside the blocks), ranges that wrap int32 arithmetic."""
+    _need_cuda()
+    for offset in range(16):
+        for lo, span in ((0, (1 << 31) - 1), (-(1 << 31), (1 << 32) - 1), (-7, 1)):
+            got = ctr_mod.ctr_mod(MASK_KEY, (1 << 64) - 100, offset, lo, span, (n,), "cuda")
+            want = ctr_mod.ctr_mod_plain(MASK_KEY, (1 << 64) - 100, offset, lo, span, n)
+            assert np.array_equal(got.cpu().numpy(), want), (offset, lo, span)
+
+
+@pytest.mark.cuda
+def test_ctr_mod_kernel_keeps_a_host_copy():
+    """A kept draw is one launch whose kernel also stores the words into
+    fresh host memory: whole once ``done`` is, and left as it was by later
+    kept draws, past the end of a slab of rows; a draw that is not kept
+    makes no host copy."""
+    _need_cuda()
+    ks = ctr_mod.KeyStream(MASK_KEY, "cuda")
+    shape, t = MASK_CELLS["1M-2048-cmp"]
+    n = int(np.prod(shape))
+    launches, kept = ctr_mod.launches, []
+    for i in range(ctr_mod.SLAB + 3):
+        out, host = ks.draw(7 + 3 * i, 8, 0, t, shape, keep=True)
+        ks.done.synchronize()
+        assert host.dtype == np.uint32 and host.shape == shape
+        assert np.array_equal(host, out.cpu().numpy().view(np.uint32))
+        want = ctr_mod.ctr_mod_plain(MASK_KEY, 7 + 3 * i, 8, 0, t, n)
+        assert np.array_equal(host.ravel(), want)
+        kept.append((host, want))
+    assert ks.draw(5, 0, 1, t - 1, shape)[1] is None
+    assert ctr_mod.launches - launches == ctr_mod.SLAB + 4
+    assert all(np.array_equal(h.ravel(), w) for h, w in kept)
+
+
+class _HostDraws:
+    """A ``CsRng``'s stream behind an object that is no ``CsRng``: a receiver
+    given it draws its masks on the host, as a Generator's."""
+
+    def __init__(self, rng):
+        self.integers = rng.integers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ps", "dag", "labeled"])
+def test_receiver_draws_its_mask_on_the_card(name):
+    """A ``CsRng`` receiver on the card draws each query's mask with one
+    launch of the kernel (``prepare.mask.device`` counts it): its masks, and
+    ρ's, are the host draw of the same stream, so its responses equal those
+    of a receiver that draws on the host, bit for bit; each ``last_mask``
+    is in host memory and stays as it was through the next query."""
+    from apsu_tpu_torch.api.parties import Receiver, Sender
+    from apsu_tpu_torch.db.receiver_db import ReceiverDB
+    from apsu_tpu_torch.mpc.oprf import DebugOprf
+    from apsu_tpu_torch.mpc.prg import CsRng
+    from apsu_tpu_torch.utils.stopwatch import GLOBAL
+
+    _need_cuda()
+    params = PSUParams.from_dict(MASK_LABELED if name == "labeled" else SHARD_SETS[name])
+    rng = np.random.default_rng(8)
+    items = rng.integers(0, 1 << 64, size=(250, 2), dtype=np.uint64)
+    labels = None
+    if name == "labeled":
+        labels = rng.integers(0, 256, size=(250, 16), dtype=np.uint8)
+        labels[:, params.item_bit_count // 8:] = 0
+    db = ReceiverDB(params, DebugOprf(), device="cuda")
+    db.set_data(items, labels=labels)
+    snd = Sender(params, DebugOprf(), rng=np.random.default_rng(2), device="cuda")
+    reqs = [snd.create_query(items[:16]), snd.create_query(items[16:28])]
+    key = b"card-mask-receiver-key-32-bytes!"
+    card = Receiver(params, db, rng=CsRng(key))
+    host = Receiver(params, db, rng=_HostDraws(CsRng(key)))
+    launches, drawn = ctr_mod.launches, GLOBAL.counts().get("prepare.mask.device", 0)
+    kept = []
+    for req in reqs * 2:
+        got, want = card.run_query(req), host.run_query(req)
+        mask = card.last_mask
+        assert mask.dtype == np.uint32 and np.array_equal(mask, host.last_mask)
+        kept.append((mask, mask.copy()))
+        assert got.results.is_cuda and torch.equal(got.results, want.results)
+        if name == "labeled":
+            assert torch.equal(got.label_results, want.label_results)
+    assert all(np.array_equal(m, c) for m, c in kept)
+    per_query = 2 if name == "labeled" else 1   # ρ too
+    assert ctr_mod.launches - launches == 4 * per_query
+    assert GLOBAL.counts()["prepare.mask.device"] - drawn == 4
 
 
 # the glue kernels G1-G4 (ops/behz.py): a parameter set's contexts on the

@@ -383,7 +383,8 @@ def test_graph_kernel_nodes_map_to_their_counters():
                    "roofline.loop_launches": 0, "roofline.add_launches": 0,
                    "behz.lift_launches": 3, "behz.mac_launches": 1,
                    "behz.scaledown_launches": 1, "behz.divround_launches": 1,
-                   "behz.lift_general_launches": 1, "behz.scaledown_general_launches": 0}
+                   "behz.lift_general_launches": 1, "behz.scaledown_general_launches": 0,
+                   "ctr_mod.launches": 0}
 
 
 def _need_cuda():
