@@ -39,12 +39,24 @@ polynomials ``ps_const_polys [B, C, nh+1, N]``.
   context's programs first.  A mutation rebuilt in place keeps them: every
   address stays.
 
+* **Spans** (``utils/stopwatch.py:GLOBAL``). Each build (``set_data``,
+  ``set_synthetic_dense``, ``build_partition``, ``rebind``, the rebuild of
+  ``insert_or_assign``) is the span ``db.build``, with the counters
+  ``db.build.items`` (items given) and ``db.build.bytes`` (the DB's device
+  bytes after it).  Inside it: ``db.place`` (locations, deduplication, the
+  placement into bins), ``db.oprf`` (``oprf.eval``), ``db.interpolate``
+  (each ``polyn_with_roots`` call with its inputs' upload) and
+  ``db.encode`` (each ``_encode_lift_into``).  No span synchronises the
+  device: on a card a span times the enqueue and whatever the host waits
+  for inside it.
+
 ``set_synthetic_dense`` builds the cache from random full bins, and
 ``from_arrays`` carries a reference DB's arrays across.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -64,6 +76,7 @@ from apsu_tpu_torch.engine.powers import plan_query
 from apsu_tpu_torch.hash.encoding import felts_from_items
 from apsu_tpu_torch.hash.items import LocFuncs
 from apsu_tpu_torch.ops.polyeval import plane_count
+from apsu_tpu_torch.utils.stopwatch import GLOBAL
 
 _log = logging.getLogger("apsu_tpu_torch")
 
@@ -254,17 +267,32 @@ class ReceiverDB:
         if self.oprf is None:
             raise ValueError("set_data needs an OPRF backend")
         programs.drop(self.bfv)
-        slots, row_keep = self._locations(items)
-        if labels is None:
-            return self._set_data_unlabeled(items, slots, row_keep, eval_level, assume_unique)
+        with self._building(len(items)):
+            if labels is not None:
+                return self._set_data_labeled(items, labels, eval_level)
+            self._placement = self._compute_placement_unlabeled(items, assume_unique)
+            return self._materialize_placement(self, self.cache_range, eval_level)
 
+    @contextlib.contextmanager
+    def _building(self, n_items: int):
+        """The span ``db.build`` around a build given ``n_items`` items,
+        then its counters: those items and the device bytes the DB holds."""
+        with GLOBAL.span("db.build"):
+            yield
+        GLOBAL.count("db.build.items", n_items)
+        GLOBAL.count("db.build.bytes", sum(
+            x.nbytes for x in (self.coeff_cache, self.const_slots, self.ps_const_polys,
+                               self.label_cache, self.label0_slots) if x is not None))
+
+    def _set_data_labeled(self, items, labels, eval_level) -> DbStats:
+        """Labeled build: the OPRF before the placement, which keeps felt
+        values distinct within a (slot, cache) lane."""
         p = self.params
         tp = p.table_params
         h, fpi, K = tp.hash_func_count, p.felts_per_item, tp.max_items_per_bin
         b0, b1 = self.bundle_range
         lo_slot, hi_slot = self._slot_range()
         self._placement = None   # a labeled build cannot rebind
-        rep = np.repeat(items, h, axis=0)
         lab_u64 = np.ascontiguousarray(labels, dtype=np.uint8).view(np.uint64).reshape(-1, 2)
         # a label rides its item's felt lanes: item_bit_count bits at most
         cap = p.item_bit_count
@@ -273,25 +301,30 @@ class ReceiverDB:
         lo_ok = lab_u64[:, 0] >> np.uint64(cap) == 0 if cap < 64 else True
         if not (np.all(hi_ok) and np.all(lo_ok)):
             raise ValueError(f"label exceeds the {cap}-bit per-item capacity of this parameter set")
-        rep_labels = np.repeat(lab_u64, h, axis=0)
         if self.cache_range is not None:
             raise ValueError("labeled mode does not support cache_range")
 
-        # drop duplicate (item, slot) pairs: colliding location functions
-        # and duplicate input items
-        if len(slots):
-            keep = _dedup_pairs(slots, rep[:, 0], rep[:, 1])
-            slots, rep, rep_labels = slots[keep], rep[keep], rep_labels[keep]
-        if (b0, b1) != (0, p.bundle_idx_count):
-            in_range = (slots >= lo_slot) & (slots < hi_slot)
-            slots, rep, rep_labels = slots[in_range], rep[in_range], rep_labels[in_range]
+        with GLOBAL.span("db.place"):
+            slots, _ = self._locations(items)
+            rep = np.repeat(items, h, axis=0)
+            rep_labels = np.repeat(lab_u64, h, axis=0)
+            # drop duplicate (item, slot) pairs: colliding location functions
+            # and duplicate input items
+            if len(slots):
+                keep = _dedup_pairs(slots, rep[:, 0], rep[:, 1])
+                slots, rep, rep_labels = slots[keep], rep[keep], rep_labels[keep]
+            if (b0, b1) != (0, p.bundle_idx_count):
+                in_range = (slots >= lo_slot) & (slots < hi_slot)
+                slots, rep, rep_labels = slots[in_range], rep[in_range], rep_labels[in_range]
 
-        prf = self.oprf.eval(rep, slots)
+        with GLOBAL.span("db.oprf"):
+            prf = self.oprf.eval(rep, slots)
         felts = felts_from_items(prf, fpi, p.item_bit_count_per_felt)     # [m, fpi]
         label_felts = felts_from_items(rep_labels, fpi, p.item_bit_count_per_felt)
         # felt x-values must be distinct within a (slot, cache) lane: a
         # colliding item spills to the next cache
-        cache_idx, depth = _place_labeled(slots, felts, K)
+        with GLOBAL.span("db.place"):
+            cache_idx, depth = _place_labeled(slots, felts, K)
         C = int(cache_idx.max()) + 1 if len(cache_idx) else 1
         slot_counts = np.bincount(slots, minlength=tp.table_size)[lo_slot:hi_slot]
         if eval_level is None:
@@ -299,47 +332,43 @@ class ReceiverDB:
         return self._finish_build(len(items), slots, felts, label_felts, cache_idx, depth, C, 0,
                                   slot_counts, eval_level)
 
-    def _set_data_unlabeled(self, items, slots, row_keep, eval_level, assume_unique) -> DbStats:
-        """Unlabeled build: placement first (it depends on slots alone), then
-        the slot-bound OPRF and felts of the kept pairs only."""
-        self._placement = self._compute_placement_unlabeled(items, slots, row_keep, assume_unique)
-        return self._materialize_placement(self, self.cache_range, eval_level)
-
-    def _compute_placement_unlabeled(self, items, slots, row_keep, assume_unique) -> _Placement:
-        """Cuckoo deduplication, the bundle-range filter and per-slot ranks
-        over the full cache axis: the part of the build that depends on the
-        item hashes alone."""
+    def _compute_placement_unlabeled(self, items, assume_unique) -> _Placement:
+        """The cuckoo locations, their deduplication, the bundle-range filter
+        and per-slot ranks over the full cache axis: the part of an unlabeled
+        build that depends on the item hashes alone (the span ``db.place``);
+        the slot-bound OPRF then runs on the kept pairs only."""
         p = self.params
         tp = p.table_params
-        items = np.array(items, dtype=np.uint64)   # the retained copy
-        items.flags.writeable = False
-        n, h, K = items.shape[0], tp.hash_func_count, tp.max_items_per_bin
+        n, h, K = len(items), tp.hash_func_count, tp.max_items_per_bin
         b0, b1 = self.bundle_range
         lo_slot, hi_slot = self._slot_range()
+        with GLOBAL.span("db.place"):
+            slots, row_keep = self._locations(items)
+            items = np.array(items, dtype=np.uint64)   # the retained copy
+            items.flags.writeable = False
+            item_idx = np.broadcast_to(np.arange(n, dtype=np.int64)[:, None], (n, h)).reshape(-1)
+            slots, item_idx = slots[row_keep], item_idx[row_keep]
+            if not assume_unique and len(slots):
+                # a duplicate input item hits the same slots: keep its first pair
+                keepu = _dedup_pairs(slots, items[item_idx, 0], items[item_idx, 1])
+                slots, item_idx = slots[keepu], item_idx[keepu]
+            if (b0, b1) != (0, p.bundle_idx_count):
+                in_range = (slots >= lo_slot) & (slots < hi_slot)
+                slots, item_idx = slots[in_range], item_idx[in_range]
 
-        item_idx = np.broadcast_to(np.arange(n, dtype=np.int64)[:, None], (n, h)).reshape(-1)
-        slots, item_idx = slots[row_keep], item_idx[row_keep]
-        if not assume_unique and len(slots):
-            # a duplicate input item hits the same slots: keep its first pair
-            keepu = _dedup_pairs(slots, items[item_idx, 0], items[item_idx, 1])
-            slots, item_idx = slots[keepu], item_idx[keepu]
-        if (b0, b1) != (0, p.bundle_idx_count):
-            in_range = (slots >= lo_slot) & (slots < hi_slot)
-            slots, item_idx = slots[in_range], item_idx[in_range]
-
-        # per-slot ranks -> (cache, depth)
-        order = np.argsort(slots, kind="stable")
-        ss = slots[order]
-        first = np.searchsorted(ss, ss, side="left")
-        ranks = np.empty(len(ss), dtype=np.int64)
-        ranks[order] = np.arange(len(ss)) - first
-        cache_idx, depth = ranks // K, ranks % K
-        C = int(cache_idx.max()) + 1 if len(cache_idx) else 1
-        return _Placement(
-            items=items, item_idx=item_idx.astype(np.int32), slots=slots.astype(np.int32),
-            cache_idx=cache_idx.astype(np.int32), depth=depth.astype(np.uint16), n_caches=C,
-            slot_counts=np.bincount(slots, minlength=tp.table_size)[lo_slot:hi_slot],
-        )
+            # per-slot ranks -> (cache, depth)
+            order = np.argsort(slots, kind="stable")
+            ss = slots[order]
+            first = np.searchsorted(ss, ss, side="left")
+            ranks = np.empty(len(ss), dtype=np.int64)
+            ranks[order] = np.arange(len(ss)) - first
+            cache_idx, depth = ranks // K, ranks % K
+            C = int(cache_idx.max()) + 1 if len(cache_idx) else 1
+            return _Placement(
+                items=items, item_idx=item_idx.astype(np.int32), slots=slots.astype(np.int32),
+                cache_idx=cache_idx.astype(np.int32), depth=depth.astype(np.uint16), n_caches=C,
+                slot_counts=np.bincount(slots, minlength=tp.table_size)[lo_slot:hi_slot],
+            )
 
     def _materialize_placement(self, into: "ReceiverDB", cache_range, eval_level) -> DbStats:
         """Slot-bound OPRF values and felts under ``into``'s OPRF, then the
@@ -357,7 +386,8 @@ class ReceiverDB:
             slots, item_idx = slots[in_c], item_idx[in_c]
             cache_idx, depth = cache_idx[in_c] - c0, depth[in_c]
             C, cache_base = c1 - c0, c0
-        prf = into.oprf.eval(pl.items[item_idx], slots)
+        with GLOBAL.span("db.oprf"):
+            prf = into.oprf.eval(pl.items[item_idx], slots)
         felts = felts_from_items(prf, p.felts_per_item, p.item_bit_count_per_felt)
         return into._finish_build(len(pl.items), slots, felts, None, cache_idx, depth, C,
                                   cache_base, pl.slot_counts, eval_level)
@@ -367,8 +397,7 @@ class ReceiverDB:
         """Compute and retain the full-cache-axis placement without building
         any device cache.  Returns the cache count C (the partitions'
         denominator).  Follow with ``build_partition``."""
-        slots, row_keep = self._locations(items)
-        self._placement = self._compute_placement_unlabeled(items, slots, row_keep, assume_unique)
+        self._placement = self._compute_placement_unlabeled(items, assume_unique)
         return int(self._placement.n_caches)
 
     def build_partition(self, cache_range, oprf=None,
@@ -382,7 +411,8 @@ class ReceiverDB:
         db = ReceiverDB(self.params, oprf if oprf is not None else self.oprf, bfv=self.bfv,
                         loc_seed=self._loc_seed, bundle_range=self.bundle_range,
                         cache_range=tuple(cache_range))
-        self._materialize_placement(db, db.cache_range, eval_level)
+        with db._building(len(self._placement.items)):
+            self._materialize_placement(db, db.cache_range, eval_level)
         return db
 
     def _finish_build(self, n, slots, felts, label_felts, cache_idx, depth, C, cache_base,
@@ -396,35 +426,36 @@ class ReceiverDB:
         B = b1 - b0
         lo_slot, hi_slot = self._slot_range()
 
-        bundle_idx = slots // ipb - b0
-        lane = (slots % ipb) * fpi
-        roots = np.zeros((B, C, K, N), dtype=np.uint32)
-        counts = np.zeros((B, C, N), dtype=np.int32)
-        for f in range(fpi):
-            roots[bundle_idx, cache_idx, depth, lane + f] = felts[:, f]
-        label_vals = None
-        if label_felts is not None:
-            label_vals = np.zeros((B, C, K, N), dtype=np.uint32)
+        with GLOBAL.span("db.place"):   # the dense bins
+            bundle_idx = slots // ipb - b0
+            lane = (slots % ipb) * fpi
+            roots = np.zeros((B, C, K, N), dtype=np.uint32)
+            counts = np.zeros((B, C, N), dtype=np.int32)
             for f in range(fpi):
-                label_vals[bundle_idx, cache_idx, depth, lane + f] = label_felts[:, f]
-        per_bundle_caches = np.zeros(B, dtype=np.int64)
-        sidx = np.arange(lo_slot, hi_slot)
-        sb = sidx // ipb - b0
-        sl = (sidx % ipb) * fpi
-        # per-(slot, cache) fills: dense rank filling unlabeled (global cache
-        # index = local + cache_base), the collision-aware placement labeled
-        slot_cache_cnt = np.zeros((len(sidx), C), dtype=np.int32)
-        if label_felts is None:
+                roots[bundle_idx, cache_idx, depth, lane + f] = felts[:, f]
+            label_vals = None
+            if label_felts is not None:
+                label_vals = np.zeros((B, C, K, N), dtype=np.uint32)
+                for f in range(fpi):
+                    label_vals[bundle_idx, cache_idx, depth, lane + f] = label_felts[:, f]
+            per_bundle_caches = np.zeros(B, dtype=np.int64)
+            sidx = np.arange(lo_slot, hi_slot)
+            sb = sidx // ipb - b0
+            sl = (sidx % ipb) * fpi
+            # per-(slot, cache) fills: dense rank filling unlabeled (global cache
+            # index = local + cache_base), the collision-aware placement labeled
+            slot_cache_cnt = np.zeros((len(sidx), C), dtype=np.int32)
+            if label_felts is None:
+                for c in range(C):
+                    slot_cache_cnt[:, c] = np.clip(slot_counts - (c + cache_base) * K, 0, K)
+            else:
+                np.add.at(slot_cache_cnt, (slots - lo_slot, cache_idx), 1)
             for c in range(C):
-                slot_cache_cnt[:, c] = np.clip(slot_counts - (c + cache_base) * K, 0, K)
-        else:
-            np.add.at(slot_cache_cnt, (slots - lo_slot, cache_idx), 1)
-        for c in range(C):
-            cnt_c = slot_cache_cnt[:, c]
-            for f in range(fpi):
-                counts[sb, c, sl + f] = cnt_c
-            used = np.bincount(sb[cnt_c > 0], minlength=B) > 0
-            per_bundle_caches[used] += 1
+                cnt_c = slot_cache_cnt[:, c]
+                for f in range(fpi):
+                    counts[sb, c, sl + f] = cnt_c
+                used = np.bincount(sb[cnt_c > 0], minlength=B) > 0
+                per_bundle_caches[used] += 1
 
         self._build_cache(roots, counts, eval_level)
         if label_vals is not None:
@@ -450,12 +481,13 @@ class ReceiverDB:
         planes ``keep_planes`` of every cache ([C, len, N]) when asked."""
         cc = max(1, LIFT_CHUNK_BYTES // (out[0].numel() * 4))
         kept = []
-        for c0 in range(0, out.shape[0], cc):
-            polys = self.bfv.encode(coeffs[c0: c0 + cc])            # [cc, planes, N]
-            out[c0: c0 + cc] = self.bfv.lift_plaintext_ntt(polys, lvl)
-            if keep_planes is not None:
-                kept.append(polys[..., keep_planes, :])
-        return torch.cat(kept) if keep_planes is not None else None
+        with GLOBAL.span("db.encode"):
+            for c0 in range(0, out.shape[0], cc):
+                polys = self.bfv.encode(coeffs[c0: c0 + cc])            # [cc, planes, N]
+                out[c0: c0 + cc] = self.bfv.lift_plaintext_ntt(polys, lvl)
+                if keep_planes is not None:
+                    kept.append(polys[..., keep_planes, :])
+            return torch.cat(kept) if keep_planes is not None else None
 
     @staticmethod
     def _cache_groups(cache: torch.Tensor):
@@ -483,8 +515,10 @@ class ReceiverDB:
             const_idx = torch.arange(0, K // (ps_low + 1) + 1, device=self.device) * (ps_low + 1)
         consts, kept = [], []
         for c0, c1 in self._cache_groups(cache):
-            coeffs = polyn_with_roots(bfv.tensor(roots_b[c0:c1]), bfv.tensor(counts_b[c0:c1]),
-                                      p.seal_params.plain_modulus)
+            with GLOBAL.span("db.interpolate"):
+                coeffs = polyn_with_roots(bfv.tensor(roots_b[c0:c1]),
+                                          bfv.tensor(counts_b[c0:c1]),
+                                          p.seal_params.plain_modulus)
             if planes > K + 1:  # zero planes: chunk alignment and in-bounds PS gathers
                 pad = torch.zeros((c1 - c0, planes - (K + 1), N), dtype=coeffs.dtype,
                                   device=self.device)
@@ -578,7 +612,8 @@ class ReceiverDB:
         )
         counts = np.full((B, C, N), K, dtype=np.int32)
         self._placement = None   # these roots place no items
-        self._build_cache(roots, counts, eval_level)
+        with self._building(B * C * K * N):
+            self._build_cache(roots, counts, eval_level)
         self.stats = DbStats(
             n_items=B * C * K * N,
             n_insertions=B * C * K * N,
@@ -682,8 +717,10 @@ class ReceiverDB:
         programs.drop(self.bfv)   # the new DB shares this context
         db = ReceiverDB(self.params, oprf, bfv=self.bfv, loc_seed=self._loc_seed,
                         bundle_range=self.bundle_range, cache_range=self.cache_range)
-        self._materialize_placement(
-            db, self.cache_range, eval_level if eval_level is not None else self._eval_level_arg)
+        with db._building(len(self._placement.items)):
+            self._materialize_placement(
+                db, self.cache_range,
+                eval_level if eval_level is not None else self._eval_level_arg)
         db._placement = self._placement
         return db
 
@@ -848,10 +885,11 @@ class ReceiverDB:
             last = np.concatenate([first_pos[1:] != first_pos[:-1], [True]])
             self._set_slot_totals(ss[last], target[last] + 1)
 
-        if grow_to > C:
-            self._regrow(C, grow_to)
-        else:
-            self._rebuild_bundles(set(np.unique(b).tolist()))
+        with self._building(len(new_items)):
+            if grow_to > C:
+                self._regrow(C, grow_to)
+            else:
+                self._rebuild_bundles(set(np.unique(b).tolist()))
         self._refresh_stats(len(pend))
         return self.stats
 

@@ -3,9 +3,11 @@ the CPU: the recorder itself (nesting, parents, query ids, the ring's
 bound, counters, the report the CLIs print); one ``Receiver.run_query`` at
 a small PS set with its exact span tree and byte counters; the same query's
 ``apsu:`` ranges in a profiler's chrome trace, and no range entered without
-a profiler; and the benchmark's five readers of the spans on a planted
-recorder.  No test here asserts a duration."""
+a profiler; the benchmark's five readers of the spans on a planted
+recorder; and a DB build's spans, counters and two readers.  No test here
+asserts a duration."""
 
+import contextlib
 import importlib.util
 import json
 import sys
@@ -20,6 +22,7 @@ from torch.profiler import ProfilerActivity, profile
 from apsu_tpu_torch.api.parties import Receiver, Sender
 from apsu_tpu_torch.core.mod32 import to_u32
 from apsu_tpu_torch.core.params import PSUParams
+from apsu_tpu_torch.db import receiver_db
 from apsu_tpu_torch.db.receiver_db import ReceiverDB
 from apsu_tpu_torch.engine import programs
 from apsu_tpu_torch.mpc.oprf import DebugOprf
@@ -240,7 +243,9 @@ def test_the_byte_counters_count_the_tensors(ps_query, monkeypatch):
     out = []
     records = _new_records(lambda: out.append(_query(recv, req)))
     (resp,) = out
-    gained = {k: v - before.get(k, 0) for k, v in GLOBAL.counts().items()}
+    # the counters the query moved (the DB build's stay as the fixture left them)
+    gained = {k: v - before.get(k, 0) for k, v in GLOBAL.counts().items()
+              if v != before.get(k, 0)}
     request = req.powers_data.nbytes + req.relin_key.nbytes
     assert gained == {
         "prepare.upload.bytes": request,
@@ -345,3 +350,80 @@ def test_the_readers_read_the_spans(monkeypatch, load_reader):
 def test_the_readers_find_nothing(monkeypatch, load_reader, recorder):
     monkeypatch.setattr(stopwatch, "GLOBAL", recorder())
     assert {name: load_reader(name)({}) for name in READERS} == dict.fromkeys(READERS)
+
+
+# ---------------------------------------------------------------------------
+# the DB build
+# ---------------------------------------------------------------------------
+
+# the spans inside ``db.build`` that each build records
+BUILD_SPANS = {"set_data": {"db.place", "db.oprf", "db.interpolate", "db.encode"},
+               "set_synthetic_dense": {"db.interpolate", "db.encode"}}
+DB_READERS = ("db_build_s", "db_interpolate_s")
+DB_TENSORS = ("coeff_cache", "const_slots", "ps_const_polys")
+
+
+def _build(kind: str):
+    """A small PS DB built by ``kind``; the items (or roots) it was given."""
+    db = ReceiverDB(PSUParams.from_dict(PS), DebugOprf(), device="cpu")
+    if kind == "set_data":
+        items = np.random.default_rng(1).integers(0, 1 << 64, size=(400, 2), dtype=np.uint64)
+        db.set_data(items)
+        return db, len(items)
+    return db, db.set_synthetic_dense(np.random.default_rng(2), n_caches=2).size
+
+
+class _Silent:
+    """A recorder that records nothing."""
+
+    def span(self, name, nbytes=None):
+        return contextlib.nullcontext()
+
+    def count(self, name, n):
+        pass
+
+
+@pytest.mark.parametrize("kind", sorted(BUILD_SPANS))
+def test_a_build_has_its_span_tree_and_counters(monkeypatch, kind):
+    sw = Stopwatch()
+    monkeypatch.setattr(receiver_db, "GLOBAL", sw)
+    db, given = _build(kind)
+    records = list(sw.records)
+    (build,) = [r for r in records if _field(r, "name") == "db.build"]
+    assert _field(build, "parent") is None and records[-1] == build
+    inside = records[:-1]
+    assert {_field(r, "name") for r in inside} == BUILD_SPANS[kind]
+    for r in inside:
+        assert _field(r, "parent") == "db.build"
+        assert _field(build, "start_ns") <= _field(r, "start_ns")
+        assert _field(r, "end_ns") <= _field(build, "end_ns")
+    assert sw.counts() == {"db.build.items": given,
+                           "db.build.bytes": sum(getattr(db, n).nbytes for n in DB_TENSORS)}
+
+
+@pytest.mark.parametrize("kind", sorted(BUILD_SPANS))
+def test_the_spans_change_no_bit_of_the_db(monkeypatch, kind):
+    recorded, _ = _build(kind)
+    monkeypatch.setattr(receiver_db, "GLOBAL", _Silent())
+    silent, _ = _build(kind)
+    for name in DB_TENSORS:
+        assert torch.equal(getattr(recorded, name), getattr(silent, name)), name
+    assert (recorded.eval_lvl, recorded.result_lvl) == (silent.eval_lvl, silent.result_lvl)
+
+
+def test_the_db_readers_read_the_build(monkeypatch, load_reader):
+    sw = Stopwatch()
+    monkeypatch.setattr(receiver_db, "GLOBAL", sw)
+    monkeypatch.setattr(stopwatch, "GLOBAL", sw)
+    _build("set_data")
+    got = {name: load_reader(name)({}) for name in DB_READERS}
+    assert got == {"db_build_s": sw.stats("db.build").total,
+                   "db_interpolate_s": sw.stats("db.interpolate").total}
+    assert 0 < got["db_interpolate_s"] < got["db_build_s"]
+
+
+@pytest.mark.parametrize("recorder", [Stopwatch, object, _planted], ids=["empty", "no_ring",
+                                                                          "queries_only"])
+def test_the_db_readers_find_nothing(monkeypatch, load_reader, recorder):
+    monkeypatch.setattr(stopwatch, "GLOBAL", recorder())
+    assert {name: load_reader(name)({}) for name in DB_READERS} == dict.fromkeys(DB_READERS)
