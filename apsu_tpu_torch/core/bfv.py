@@ -47,7 +47,8 @@ from apsu_tpu_torch.core.mod32 import (
     to_u32,
 )
 from apsu_tpu_torch.core.params import SealParams
-from apsu_tpu_torch.core.rns import ExactDiv, ExactLiftConv, RnsBase, ScaleDown, shoup_cols
+from apsu_tpu_torch.core.rns import (DeltaScale, ExactDiv, ExactLiftConv, RnsBase, ScaleDown,
+                                     shoup_cols)
 from apsu_tpu_torch.device import canonical, resolve
 from apsu_tpu_torch.ops import behz
 
@@ -163,15 +164,11 @@ class BfvContext:
         self.div_drop: List[Optional[ExactDiv]] = [None] * (len(self.q_primes) + 1)
         for lvl in range(1, len(self.q_primes)):
             self.div_drop[lvl + 1] = ExactDiv(self.levels[lvl], self.q_primes[lvl])
-        # _scale_impl's constant columns at every level: (t >> 1) mod q_j and
-        # t^{-1} mod q_j with its Shoup companion, uploaded once here (an
-        # upload per call could not be captured into a CUDA graph)
-        t = self.t
-        self._scale_cols = [None] + [
-            (col([(t >> 1) % p for p in b.primes], dev),
-             shoup_cols([pow(t % p, -1, p) for p in b.primes], b.primes, dev))
-            for b in self.levels[1:]
-        ]
+        # the plaintext scaling's constants at every level (_scale_impl, G5),
+        # uploaded once here (an upload per call could not be captured into a
+        # CUDA graph)
+        self.delta: List[Optional[DeltaScale]] = [None] + [
+            DeltaScale(b, self.t) for b in self.levels[1:]]
         # the query's programs (engine/programs.py), the counterpart of the
         # reference's _jit_cache
         self.programs = {}
@@ -512,16 +509,8 @@ class BfvContext:
     def _scale_impl(self, m, level: int):
         """round(Q_l·m/t) mod q_j for plaintext m [..., N] (plain residues
         [..., L, N]):  ≡ (h − rem)·t^{-1} (mod q_j), rem = (r·m + h) mod t,
-        r = Q_l mod t, h = t >> 1."""
-        base = self.levels[level]
-        t = self.t
-        r = base.prod % t
-        m1 = m[..., None, :]
-        rm = smul(m1, r, t)
-        rem = add_mod(rm, t >> 1, t)                                 # [..., 1, N] < t
-        hq, tinv_sh = self._scale_cols[level]
-        diff = sub_mod(hq, rem, base.p_d)   # rem < t < q_j: valid residue mod q_j
-        return shoup_mul(diff, *tinv_sh, base.p_d)
+        r = Q_l mod t, h = t >> 1 (G5 on the card, ``ops/behz.py:delta``)."""
+        return behz.delta(m, self.delta[level])
 
     def lift_plaintext_ntt(self, pt_poly, level: Optional[int] = None) -> torch.Tensor:
         """Plaintext poly mod t [..., N] -> NTT-domain Montgomery [..., L, N] mod q."""

@@ -8,7 +8,9 @@
 * ``ShenoyKumaresanConv`` is the exact conversion back from Bsk to q through
   the m_sk channel;
 * ``ExactDiv`` is exact (rounded) division by one of the base's own moduli —
-  the mod-down of key switching and mod-switch.
+  the mod-down of key switching and mod-switch;
+* ``DeltaScale`` holds the constants of BFV's plaintext scaling
+  round(Q·m/t) mod q_j.
 
 Residue tensors ``[..., k, N]`` are PLAIN (non-Montgomery) int32 at the
 boundaries of every operator; Montgomery factors are folded into constants.
@@ -63,6 +65,9 @@ SCALE_LAYOUT = (("q", (MAXQ,)), ("yq", (MAXQ,)), ("yq_sh", (MAXQ,)), ("b", (MAXB
 DIV_LAYOUT = (("q", (MAXQ,)), ("rinv", (MAXQ,)), ("rinv_sh", (MAXQ,)), ("one_sh", (MAXQ,)),
               ("half", (MAXQ,)), ("half_q", (MAXQ, MAXQ)), ("dinv", (MAXQ, MAXQ)),
               ("dinv_sh", (MAXQ, MAXQ)))
+DELTA_LAYOUT = (("q", (MAXQ,)), ("t", (1,)), ("rt", (1,)), ("rt_sh", (1,)), ("h", (1,)),
+                ("hq", (MAXQ,)), ("tinv", (MAXQ,)), ("tinv_sh", (MAXQ,)), ("r1", (MAXQ,)),
+                ("r1_sh", (MAXQ,)))
 
 
 def pack_table(layout, **fields) -> np.ndarray:
@@ -425,3 +430,29 @@ class ExactDiv:
         xd_q = shoup_mul(x_d, *self.one_sh, q.p_d)
         num = sub_mod(x_q, xd_q, q.p_d)
         return shoup_mul(num, *self.d_inv_sh, q.p_d)
+
+
+class DeltaScale:
+    """The constants of BFV's plaintext scaling Δ·m = round(Q·m/t) mod q_j
+    at one level q (``core/bfv.py:_scale_impl``): (h − rem)·t^{-1} mod q_j
+    with rem = (r·m + h) mod t, r = Q mod t, h = t >> 1.  The columns are
+    uploaded here, once (an upload per call could not be captured into a
+    CUDA graph), for the plain version (``ops/behz.py:delta_plain``);
+    ``table`` is G5's (``csrc/scale_add.cu``)."""
+
+    def __init__(self, q: RnsBase, t: int):
+        self.q, self.t = q, int(t)
+        self.h = self.t >> 1
+        self.rt = q.prod % self.t
+        self.rt_sh = int(shoup_pair(np.uint32(self.rt), np.uint32(self.t)))
+        self.tinv = [pow(self.t % p, -1, p) for p in q.primes]
+        self.hq = col([self.h % p for p in q.primes], q.device)
+        self.tinv_sh = shoup_cols(self.tinv, q.primes, q.device)
+
+    @functools.cached_property
+    def table(self) -> np.ndarray:
+        qs = self.q.primes
+        return pack_table(
+            DELTA_LAYOUT, q=qs, t=[self.t], rt=[self.rt], rt_sh=[self.rt_sh], h=[self.h],
+            hq=[self.h % p for p in qs], **_shoup_fields("tinv", self.tinv, qs),
+            **_shoup_fields("r1", [R32 % p for p in qs], qs))

@@ -1,8 +1,8 @@
-// Shared by the BFV/RNS glue kernels G1-G4 (behz_lift.cu, mont_mac.cu,
-// behz_scaledown.cu, rns_divround.cu): modular arithmetic on canonical u32
-// residues of primes p < 2^30, the constant tables the wrappers fill on the
-// host (apsu_tpu_torch/core/rns.py, the same field order and sizes), and the
-// launch shape.
+// Shared by the BFV/RNS glue kernels G1-G5 (behz_lift.cu, mont_mac.cu,
+// behz_scaledown.cu, rns_divround.cu, scale_add.cu): modular arithmetic on
+// canonical u32 residues of primes p < 2^30, the constant tables the
+// wrappers fill on the host (apsu_tpu_torch/core/rns.py, the same field
+// order and sizes), and the launch shape.
 //
 // A table is passed to its kernel BY VALUE, so it sits in the kernel's
 // parameter space: every thread reads the same word through the constant
@@ -180,10 +180,21 @@ struct DivTable {
   uint32_t dinv[MAXQ][MAXQ], dinv_sh[MAXQ][MAXQ];   // q_d^-1 mod q_j
 };
 
+// G5: BFV's plaintext scaling round(Q*m/t) mod q_j at one level and the adds
+// around it (core/rns.py: DeltaScale.table)
+struct DeltaTable {
+  uint32_t q[MAXQ];
+  uint32_t t, rt, rt_sh, h;              // t; Q mod t and its Shoup companion mod t; t >> 1
+  uint32_t hq[MAXQ];                     // (t >> 1) mod q_j
+  uint32_t tinv[MAXQ], tinv_sh[MAXQ];    // t^-1 mod q_j
+  uint32_t r1[MAXQ], r1_sh[MAXQ];        // R mod q_j (the Montgomery form)
+};
+
 static_assert(sizeof(LiftTable) == 529 * 4, "LiftTable layout");
 static_assert(sizeof(ModTable) == 24 * 4, "ModTable layout");
 static_assert(sizeof(ScaleTable) == 861 * 4, "ScaleTable layout");
 static_assert(sizeof(DivTable) == 350 * 4, "DivTable layout");
+static_assert(sizeof(DeltaTable) == 64 * 4, "DeltaTable layout");
 
 // blocks of THREADS lanes along N (x), each walking ``per_block`` rows of
 // the flattened leading axes (y), more when there are more rows than a

@@ -40,6 +40,7 @@ from apsu_tpu_torch.core.bfv import BfvContext, Ciphertext, RelinKey
 from apsu_tpu_torch.core.mod32 import add_mod, mont_mul
 from apsu_tpu_torch.device import canonical
 from apsu_tpu_torch.engine.powers import PowerSchedule, QueryPlan
+from apsu_tpu_torch.ops import behz
 from apsu_tpu_torch.ops.polyeval import eval_dot, ps_inner
 
 MUL_CHUNK = 8            # targets per batched multiply + relinearize
@@ -203,8 +204,7 @@ def eval_matching_polys(
     base = bfv.levels[eval_level]
     cms = add_mod(const_slots, mask_slots, bfv.t)
     acc = base.from_mont(base.ntt.intt(eval_dot(powers_ntt, coeff_cache, base)))
-    dm = bfv._scale_impl(bfv.encode(cms), eval_level)   # round(Q_l·m/t), plain
-    acc[:, :, 0] = add_mod(acc[:, :, 0], dm, base.p_d)
+    behz.delta_add(acc[:, :, 0], bfv.encode(cms), bfv.delta[eval_level])   # + round(Q_l·m/t)
     return Ciphertext(acc, is_ntt=False, level=eval_level)
 
 
@@ -232,19 +232,18 @@ def eval_matching_polys_labeled(
     (match_ct, label_ct), each [B, C, 2, Le, N] in the coefficient domain."""
     base = bfv.levels[eval_level]
     p, pni = base.p_d, base.pni_d
+    ds = bfv.delta[eval_level]
     acc_m = eval_dot(powers_ntt, coeff_cache, base)   # NTT mont, sans constant
     acc_l = eval_dot(powers_ntt, label_cache, base)
     dm0 = base.ntt.ntt(base.to_mont(bfv._scale_impl(bfv.encode(const_slots), eval_level)))
-    acc_m[:, :, 0] = add_mod(acc_m[:, :, 0], dm0, p)
+    behz.add_into(acc_m[:, :, 0], dm0, ds)
     rho_ntt = bfv.lift_plaintext_ntt(bfv.encode(rho_slots), eval_level)
     acc_l = add_mod(acc_l, mont_mul(acc_m, rho_ntt[:, :, None], p, pni), p)
 
     res_m = base.from_mont(base.ntt.intt(acc_m))
-    dmask = bfv._scale_impl(bfv.encode(mask_slots), eval_level)
-    res_m[:, :, 0] = add_mod(res_m[:, :, 0], dmask, p)
+    behz.delta_add(res_m[:, :, 0], bfv.encode(mask_slots), ds)
     res_l = base.from_mont(base.ntt.intt(acc_l))
-    dl0 = bfv._scale_impl(bfv.encode(label0_slots), eval_level)
-    res_l[:, :, 0] = add_mod(res_l[:, :, 0], dl0, p)
+    behz.delta_add(res_l[:, :, 0], bfv.encode(label0_slots), ds)
     return (Ciphertext(res_m, is_ntt=False, level=eval_level),
             Ciphertext(res_l, is_ntt=False, level=eval_level))
 
@@ -379,21 +378,22 @@ def _ps_rows(bfv, cache_r, const_r, mask_r, low_c, fbq_c, fbb_c, cpb, rk, lvl,
     operands, one for every ``cpb`` rows (bundle-aligned rows when cpb > 1).
     Every tensor lies on ``bfv``'s device."""
     q = bfv.levels[lvl]
-    rbase = bfv.levels[result_level]
     size, planes, N = cache_r.shape[0], cache_r.shape[1], cache_r.shape[-1]
     nseg = planes // ph
     # plane k·ph + i == [k, i] of a [nseg, ph] plane view (strided, no copy)
     cache5 = cache_r[:, : nseg * ph].reshape((size, nseg, ph) + tuple(cache_r.shape[2:]))
+    ds = bfv.delta[lvl]
     acc = ps_inner(low_c, cache5, q, cpb)[:, : nh + 1]
     inner = q.from_mont(q.ntt.intt(acc))             # coeff plain
-    dm = bfv._scale_impl(const_r, lvl)                # [R, nh+1, L, N]
-    inner[..., 0, :, :] = add_mod(inner[..., 0, :, :], dm, q.p_d)
+    # + Δ·c (c = const_r [R, nh+1, N]) into component 0, in one pass (G5)
+    # that also gives Montgomery Δ·c of planes 1..nh
+    dm_mont = behz.delta_add(inner[..., 0, :, :], const_r, ds, mont_skip=1)[1]
 
-    # lazy BEHZ: the lhs's q-NTT form is the inner accumulator itself
-    # (adding NTT(mont(dm)) to component 0), the rhs is pre-transformed
-    dm_ntt = q.ntt.ntt(q.to_mont(dm[:, 1:]))
-    fa_q = acc[:, 1:].clone()
-    fa_q[:, :, 0] = add_mod(acc[:, 1:, 0], dm_ntt, q.p_d)
+    # lazy BEHZ: the lhs's q-NTT form is the inner accumulator itself, with
+    # NTT(mont(Δ·c)) added to component 0 in place (acc is read no more),
+    # the rhs is pre-transformed
+    behz.add_into(acc[:, 1:, 0], q.ntt.ntt(dm_mont), ds)
+    fa_q = acc[:, 1:]
     if cpb == 1:
         tot = bfv.multiply_sum_fused(fa_q, inner[:, 1:], fbq_c, fbb_c, lvl, nh)
     else:
@@ -403,11 +403,10 @@ def _ps_rows(bfv, cache_r, const_r, mask_r, low_c, fbq_c, fbb_c, cpb, rk, lvl,
         tot = bfv.multiply_sum_fused(
             blk(fa_q), blk(inner[:, 1:]), fbq_c[:, None], fbb_c[:, None], lvl, nh,
         ).reshape((size, 3, q.k, N))
-    tot[:, :2] = add_mod(tot[:, :2], inner[:, 0], q.p_d)
+    behz.add_into(tot[:, :2], inner[:, 0], ds)
     rel = bfv.relinearize(Ciphertext(tot, is_ntt=False, level=lvl), _rk_on(rk, bfv))
     sw = bfv.mod_switch_to(rel, result_level).data    # [R, 2, Lr, N]
-    dm2 = bfv._scale_impl(bfv.encode(mask_r), result_level)
-    sw[:, 0] = add_mod(sw[:, 0], dm2, rbase.p_d)
+    behz.delta_add(sw[:, 0], bfv.encode(mask_r), bfv.delta[result_level])   # + Δ·r
     return sw
 
 

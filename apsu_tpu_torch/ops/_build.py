@@ -156,6 +156,9 @@ def lib() -> ctypes.CDLL:
         L.apsu_rns_divround.argtypes = [vp, *[i64] * 3, vp, *[i64] * 4, vp, i64, i32, i32, i32,
                                         i32, vp, vp]
         L.apsu_rns_divround.restype = i32
+        L.apsu_scale_add.argtypes = [vp, *[i64] * 3, vp, *[i64] * 4, vp, *[i64] * 4, vp, i32,
+                                     i32, i64, i32, i32, i32, vp, vp]
+        L.apsu_scale_add.restype = i32
         u64 = ctypes.c_uint64
         L.apsu_ctr_mod.argtypes = [vp, vp, u64, u64, i32, u32, u32, u64, vp, vp, i64, vp, i32,
                                    vp]

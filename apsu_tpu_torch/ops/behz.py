@@ -1,13 +1,14 @@
-"""Kernels G1-G4: the BFV/RNS glue of the BEHZ multiply, the multiply-sum,
+"""Kernels G1-G5: the BFV/RNS glue of the BEHZ multiply, the multiply-sum,
 relinearization and mod-switch (``csrc/behz_lift.cu``, ``csrc/mont_mac.cu``,
-``csrc/behz_scaledown.cu``, ``csrc/rns_divround.cu``) and their plain
+``csrc/behz_scaledown.cu``, ``csrc/rns_divround.cu``), BFV's plaintext
+scaling with the adds around it (``csrc/scale_add.cu``), and their plain
 PyTorch versions.
 
 The reference has no Pallas kernel for this glue: it runs as jitted XLA
 programs (``apsu_tpu/core/bfv.py:_jitted``, the power wavefront's
 ``ps_power_tensors``, the PS chunk programs), inside which XLA fuses the u32
 chains of ``core/mod32.py`` and ``core/rns.py`` into a few passes over the
-residues.  These four kernels are the port's counterpart of those fused
+residues.  These five kernels are the port's counterpart of those fused
 stretches; the NTTs between them stay kernel 1's.
 
 - G1 ``lift``: plain coefficient residues x [..., Lq, N] -> ``q.to_mont(x)``
@@ -21,6 +22,11 @@ stretches; the NTTs between them stay kernel 1's.
   coefficient in registers.
 - G4 ``keyswitch_div`` (from_mont, ÷ P rounded, + c0, c1) and ``mod_switch``
   (the rounded drops from level l to r, one limb at a time in registers).
+- G5 ``delta`` (Δ·m = round(Q·m/t) mod q_j of plaintext coefficients),
+  ``delta_add`` (Δ·m added in place into a ciphertext's component, with the
+  Montgomery form of chosen planes written beside it) and ``add_into`` (an
+  in-place add of two residue tensors): the PS evaluation's constant term and
+  mask, and every ``BfvContext._scale_impl`` on the card.
 
 G3 and G1's lift are built for each (q limbs, Bsk limbs) pair of
 ``exact_pairs()`` with loops of exactly that length and lazy 64-bit sums, and
@@ -30,12 +36,15 @@ counted on their own: no parameter file reaches it).
 Every value is a canonical residue, so each kernel equals its plain version
 bit for bit whatever order it sums in.  A wrapper launches its kernel for a
 CUDA tensor and runs the plain version only for a CPU tensor: there is no
-fallback.  Each kernel is bound by device-memory bytes (each input read once,
-each output written once), G3 by its multiplies about as much; one thread
-per coefficient lane holds every limb in registers and loads along N are
-coalesced.  The constant tables come from ``core/rns.py``
+fallback.  G5's ``delta_add`` and ``add_into`` write into their first
+operand, a view that the kernel addresses in place (a layout it would have
+to copy is refused).  Each kernel is bound by device-memory bytes (each
+input read once, each output written once), G3 by its multiplies about as
+much; one thread per coefficient lane holds every limb in registers and
+loads along N are coalesced.  The constant tables come from ``core/rns.py``
 (``RnsBase.to_mont_table``, ``ExactLiftConv.table``, ``ScaleDown.table``,
-``ExactDiv.table``, ``RnsBase.mod_table``) and go to each kernel by value.
+``ExactDiv.table``, ``RnsBase.mod_table``, ``DeltaScale.table``) and go to
+each kernel by value.
 """
 
 from __future__ import annotations
@@ -46,7 +55,7 @@ import re
 
 import torch
 
-from apsu_tpu_torch.core.mod32 import I32, I64, add_mod, mont_mul, shoup_mul
+from apsu_tpu_torch.core.mod32 import I32, I64, add_mod, mont_mul, shoup_mul, sub_mod
 from apsu_tpu_torch.ops import _build
 
 # kernel launches since the last reset (set to 0 to reset); a launch captured
@@ -55,6 +64,7 @@ lift_launches = 0        # G1
 mac_launches = 0         # G2
 scaledown_launches = 0   # G3
 divround_launches = 0    # G4
+scale_add_launches = 0   # G5
 # of those, the launches of G1's lift and of G3 on their general builds
 lift_general_launches = 0
 scaledown_general_launches = 0
@@ -64,6 +74,7 @@ scaledown_general_launches = 0
 MAXQ, MAXB, MAXL = 10, 12, 12
 _LIFT, _DIGITS, _SCALE = 0, 1, 2
 _TENSOR, _KEYSWITCH = 0, 1
+_DELTA, _DELTA_ADD, _ADD = 0, 1, 2
 
 
 @functools.cache
@@ -483,3 +494,128 @@ def mod_switch_cuda(x, divs, top: int, target: int):
     x, rows, xw = _rows(x, 2)
     out = torch.empty(tuple(x.shape[:-2]) + (target, n), dtype=I32, device=x.device)
     return _g4(x, xw, None, (1, 0, 0), 0, out, rows, n, top, target, 1, div.table)
+
+
+# ---------------------------------------------------------------------------
+# G5: BFV's plaintext scaling and the adds that fold it into a ciphertext
+# ---------------------------------------------------------------------------
+
+def delta_plain(m, ds):
+    """Δ·m = round(Q·m/t) mod q_j of plaintext coefficients m [..., N] < t at
+    ``ds``'s level (a ``DeltaScale``): plain residues [..., L, N]."""
+    q, t = ds.q, ds.t
+    rem = add_mod(shoup_mul(m[..., None, :], ds.rt, ds.rt_sh, t), ds.h, t)   # [..., 1, N] < t
+    diff = sub_mod(ds.hq, rem, q.p_d)   # rem < t < q_j: a residue mod q_j
+    return shoup_mul(diff, *ds.tinv_sh, q.p_d)
+
+
+def delta_add_plain(x, m, ds, mont_skip=None):
+    """x [..., L, N] += Δ·m mod q in place, m [..., N] < t.  Returns (x, the
+    Montgomery form of Δ·m's planes mont_skip.. along m's axis -2, or
+    None)."""
+    dm = delta_plain(m, ds)
+    x[...] = add_mod(x, dm, ds.q.p_d)
+    return x, None if mont_skip is None else scale_plain(dm[..., mont_skip:, :, :], ds.q)
+
+
+def add_into_plain(x, y, ds):
+    """x [..., L, N] += y mod q in place (``ds``'s level q); returns x."""
+    x[...] = add_mod(x, y, ds.q.p_d)
+    return x
+
+
+def _in_place(x, tail, name):
+    """``_rows`` of an operand written in place: a layout that ``_rows``
+    would copy is refused."""
+    if x.stride(-1) != 1 or len(_runs(x.shape[:-tail], x.stride()[:-tail])) > 2:
+        raise ValueError(f"{name} writes in place: lanes contiguous and leading axes of at "
+                         f"most two runs, got strides {tuple(x.stride())}")
+    return _rows(x, tail)
+
+
+def _g5(mode, ds, rows, like, m=None, mw=(1, 0, 0), x=None, xw=(1, 0, 0), y=None,
+        yw=(1, 0, 0), out=None, period=1, skip=0):
+    global scale_add_launches
+    q = ds.q
+    if q.k > MAXQ:
+        raise ValueError(f"scale_add takes at most {MAXQ} limbs")
+    if rows:
+        scale_add_launches += _launch(
+            "scale_add", _build.lib().apsu_scale_add, like,
+            m.data_ptr() if m is not None else None, *mw,
+            x.data_ptr() if x is not None else None, *xw, x.stride(-2) if x is not None else 0,
+            y.data_ptr() if y is not None else None, *yw, y.stride(-2) if y is not None else 0,
+            out.data_ptr() if out is not None else None, period, skip, rows, q.n, q.k, mode,
+            ds.table.ctypes.data)
+
+
+def delta(m, ds):
+    """G5, scale mode: Δ·m [..., L, N] of plaintext coefficients m [..., N]
+    (``core/bfv.py:_scale_impl``)."""
+    if m.device.type == "cpu":
+        return delta_plain(m, ds)
+    return delta_cuda(m, ds)
+
+
+def delta_cuda(m, ds):
+    q = ds.q
+    _check(m, "scale_add")
+    if m.dim() < 1 or m.shape[-1] != q.n:
+        raise ValueError(f"delta needs [..., {q.n}], got {tuple(m.shape)}")
+    m, rows, mw = _rows(m, 1)
+    out = torch.empty(tuple(m.shape[:-1]) + (q.k, q.n), dtype=I32, device=m.device)
+    _g5(_DELTA, ds, rows, m, m=m, mw=mw, out=out)
+    return out
+
+
+def delta_add(x, m, ds, mont_skip=None):
+    """G5, scale-add mode: x [..., L, N] (a view, written in place) +=
+    Δ·m, m [..., N] < t.  Returns (x, None), or with ``mont_skip`` (x, the
+    Montgomery form of Δ·m of the planes mont_skip.. along m's axis -2,
+    [..., P - mont_skip, L, N]): the PS evaluation's constant term, whose
+    planes 1..nh kernel 1 transforms next."""
+    if x.device.type == "cpu":
+        return delta_add_plain(x, m, ds, mont_skip)
+    return delta_add_cuda(x, m, ds, mont_skip)
+
+
+def delta_add_cuda(x, m, ds, mont_skip=None):
+    q = ds.q
+    _check(x, "scale_add")
+    _check(m, "scale_add")
+    if (x.dim() < 2 or tuple(x.shape[-2:]) != (q.k, q.n)
+            or tuple(m.shape) != tuple(x.shape[:-2]) + (q.n,)):
+        raise ValueError(f"delta_add needs x [..., {q.k}, {q.n}] and m [..., {q.n}], got "
+                         f"{tuple(x.shape)} and {tuple(m.shape)}")
+    x, rows, xw = _in_place(x, 2, "delta_add")
+    m, _, mw = _rows(m, 1)
+    out, period, skip = None, 1, 0
+    if mont_skip is not None:
+        if m.dim() < 2 or not 0 <= mont_skip < m.shape[-2]:
+            raise ValueError(f"mont_skip {mont_skip} outside m's axis -2 {tuple(m.shape)}")
+        period, skip = m.shape[-2], mont_skip
+        out = torch.empty(tuple(m.shape[:-2]) + (period - skip, q.k, q.n), dtype=I32,
+                          device=m.device)
+    _g5(_DELTA_ADD, ds, rows, x, m=m, mw=mw, x=x, xw=xw, out=out, period=period, skip=skip)
+    return x, out
+
+
+def add_into(x, y, ds):
+    """G5, add mode: x [..., L, N] (a view, written in place) += y mod q,
+    y of x's shape; returns x."""
+    if x.device.type == "cpu":
+        return add_into_plain(x, y, ds)
+    return add_into_cuda(x, y, ds)
+
+
+def add_into_cuda(x, y, ds):
+    q = ds.q
+    _check(x, "scale_add")
+    _check(y, "scale_add")
+    if x.dim() < 2 or tuple(x.shape[-2:]) != (q.k, q.n) or x.shape != y.shape:
+        raise ValueError(f"add_into needs two [..., {q.k}, {q.n}] of one shape, got "
+                         f"{tuple(x.shape)} and {tuple(y.shape)}")
+    x, rows, xw = _in_place(x, 2, "add_into")
+    y, _, yw = _rows(y, 2)
+    _g5(_ADD, ds, rows, x, x=x, xw=xw, y=y, yw=yw)
+    return x

@@ -40,7 +40,8 @@ COUNTERS = ((ntt, "launches", _fn("ntt_kernel")),
             (behz, "divround_launches", _fn("rns_divround_kernel")),
             (behz, "lift_general_launches", _fn("behz_lift_kernel", general=True)),
             (behz, "scaledown_general_launches", _fn("behz_scaledown_kernel", general=True)),
-            (ctr_mod, "launches", _fn("ctr_mod_kernel")))
+            (ctr_mod, "launches", _fn("ctr_mod_kernel")),
+            (behz, "scale_add_launches", _fn("scale_add_kernel")))
 
 
 def read() -> list:

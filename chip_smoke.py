@@ -55,8 +55,8 @@ Phases, each printing one JSON object per line:
    and passes the oracle (``csrng_path``);
 5. the kernels again against their plain versions at every shape the
    recorded PS query launched them with, and their per-query device time and bound;
-   the glue kernels G1-G4 (``ops/behz.py``) at every call of that query, on
-   the inputs it gave them, each distinct call then timed by graph replay
+   the glue kernels G1-G5 (``ops/behz.py``) at every call of that query, on
+   the inputs it gave them (fresh copies for each run: G5 writes in place), each distinct call then timed by graph replay
    beside its bound and the measured ceilings (phases 6, 7, 11, 12 and 14
    do the same for their warm or recorded queries; phases 4, 6, 11 and 12
    fail if a glue kernel never launched, and every such check fails if G3
@@ -174,7 +174,7 @@ Phases, each printing one JSON object per line:
    (``csrc/compare/glue_*.cu``) built alone, checked and timed in turns
    with the package's kernels at every G call of phase 5's and phase 6's
    warm queries (``compare_glue``);
-17. the ``kernels`` summary line (K1-K3, K9, K10, then G1-G4 with their
+17. the ``kernels`` summary line (K1-K3, K9, K10, then G1-G5 with their
    launches on the in-process paths, then M1 with its launches on the
    ``CsRng`` path), then ``{"ok": true, "device": ...}``.
 With ``--profile``, one warm query of phases 5, 6, 7 and 14 runs under
@@ -607,7 +607,7 @@ def recording_kernels(calls: dict, on: bool = True, keep: bool = True):
     appends its arguments to ``calls``: "ntt" gets (shape, inverse, tables),
     "eval_dot" (powers shape, cache, base), "ps_inner" (low shape, cache5,
     base) and, with ``keep``, "glue" (wrapper name, its arguments with each
-    tensor copied with its own strides, ``strided_copy``) for G1-G4.  With
+    tensor copied with its own strides, ``strided_copy``) for G1-G5.  With
     ``keep`` False a call holds no tensor and no tables, only what describes
     them: the cache's (shape, strides) and the tables' or base's (primes,
     N), so a whole process is recorded without keeping its device memory
@@ -770,6 +770,9 @@ GLUE_KERNELS = (
     ("rns_divround", "apsu_tpu_torch/csrc/rns_divround.cu",
      "apsu_tpu/core/bfv.py:923-926, :931-945; apsu_tpu/core/rns.py:295 (jitted XLA, no Pallas)",
      "divround_launches", ("keyswitch_div_cuda", "mod_switch_cuda")),
+    ("scale_add", "apsu_tpu_torch/csrc/scale_add.cu",
+     "apsu_tpu/core/bfv.py:646; apsu_tpu/engine/evaluator.py:941-972 (jitted XLA, no Pallas)",
+     "scale_add_launches", ("delta_cuda", "delta_add_cuda", "add_into_cuda")),
 )
 GLUE_WRAPPERS = tuple(w for *_, ws in GLUE_KERNELS for w in ws)
 
@@ -784,7 +787,7 @@ GLUE_BUILDS: dict = {}
 
 
 def glue_launches() -> dict:
-    """G1-G4's launch counts, by kernel name."""
+    """G1-G5's launch counts, by kernel name."""
     from apsu_tpu_torch.ops import behz
 
     return {name: getattr(behz, counter) for name, _, _, counter, _ in GLUE_KERNELS}
@@ -881,6 +884,13 @@ def _glue_bytes_mults(name, args, out):
         lq, lb = sd.q.k, sd.bsk.k
         per = 3 * lq + 2 * lb * (lq + 1) + 2 * lb + 2 * lq * lb + 5 * (lb + 1 + lq)
         return 4 * (in_elems + out_elems), out_elems // lq * per
+    elif name in ("delta_cuda", "delta_add_cuda"):
+        # r*m mod t, then a Shoup product a limb (and one more for each
+        # Montgomery output); x read and written in place
+        m = args[1] if name == "delta_add_cuda" else args[0]
+        shoups = m.numel() + sum(o.numel() for o in outs)
+    elif name == "add_into_cuda":
+        shoups = 0
     elif name == "keyswitch_div_cuda":
         u, data, _, div = args
         k = div.q.k
@@ -893,7 +903,7 @@ def _glue_bytes_mults(name, args, out):
 
 
 def check_glue_calls(calls, label, ceilings) -> dict:
-    """G1-G4 against their plain versions at every call recorded in
+    """G1-G5 against their plain versions at every call recorded in
     ``calls`` (one query's, each on the inputs it was given), then each
     distinct call (wrapper, shapes, strides, tables) timed by graph replay:
     for each kernel its launches, per-query device time, bound and ceiling
@@ -915,9 +925,12 @@ def check_glue_calls(calls, label, ceilings) -> dict:
                         "general_launches": general.get(name, 0), "distinct": {}}
                  for name, *_ in GLUE_KERNELS}
     kernel_of = {w: name for name, *_, ws in GLUE_KERNELS for w in ws}
+    def fresh(args):   # G5 writes into its first operand: each run gets its own
+        return [strided_copy(a) if isinstance(a, torch.Tensor) else a for a in args]
+
     for wrapper, args in calls:
-        got = getattr(behz, wrapper)(*args)
-        want = getattr(behz, wrapper.replace("_cuda", "_plain"))(*args)
+        got = getattr(behz, wrapper)(*fresh(args))
+        want = getattr(behz, wrapper.replace("_cuda", "_plain"))(*fresh(args))
         k = by_kernel[kernel_of[wrapper]]
         for g, w in zip(got if isinstance(got, tuple) else (got,),
                         want if isinstance(want, tuple) else (want,)):
@@ -1151,11 +1164,13 @@ PROFILE_PROGRAMS = ("power_tensor", "ps_power_tensors", "matching", "matching_la
                     "ps_matching")
 # the hand-written kernels by the name of their __global__ function
 KERNEL_NAMES = ("ntt_kernel", "ps_inner_kernel", "eval_dot_kernel", "behz_lift_kernel",
-                "mont_mac_kernel", "behz_scaledown_kernel", "rns_divround_kernel")
+                "mont_mac_kernel", "behz_scaledown_kernel", "rns_divround_kernel",
+                "scale_add_kernel")
 # the launch counter (ops/counts.py) of each, by its name in KERNEL_NAMES
 TRACED_COUNTERS = dict(zip(KERNEL_NAMES, (
     "ntt.launches", "polyeval.launches", "polyeval.dot_launches", "behz.lift_launches",
-    "behz.mac_launches", "behz.scaledown_launches", "behz.divround_launches")))
+    "behz.mac_launches", "behz.scaledown_launches", "behz.divround_launches",
+    "behz.scale_add_launches")))
 
 
 @contextlib.contextmanager
@@ -1264,7 +1279,7 @@ def profile_turns(other: Path) -> int:
     checkout ROOT, each in a process of its own, in turns (this, ROOT, ROOT,
     this): every reading, then for each checkout and path the best warm
     query, the profiled query's busy and idle share, and its device time in
-    the hand-written protocol kernels, in G1-G4 and in plain PyTorch ops."""
+    the hand-written protocol kernels, in G1-G5 and in plain PyTorch ops."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2

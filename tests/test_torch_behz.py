@@ -1,10 +1,13 @@
-"""The plain versions of the glue kernels G1-G4 (``apsu_tpu_torch/ops/behz.py``)
+"""The plain versions of the glue kernels G1-G5 (``apsu_tpu_torch/ops/behz.py``)
 against the reference's own functions on the same seeded numpy inputs, bit
 for bit: the lift, to_mont/from_mont and relinearization's digits (G1), the
 BEHZ tensor and the key-switch sum (G2), the scale-down (G3), the key-switch
-mod-down and the mod-switch (G4).  Each runs on three contexts: small
+mod-down and the mod-switch (G4), the plaintext scaling and the adds of the
+PS evaluation's constant term (G5).  G1-G4 run on three contexts: small
 parameters (N=256), 1M-2048-cmp's (N=4096) and 256M-1's 30-bit primes at
-N=2048; with random residues, every residue p - 1, and every residue 0;
+N=2048; G5 on small, 1M-2048-cmp, 1M-2048-com (29/29/28-bit primes) and
+16M-4096's chain and t at N=2048; with random residues, every residue p - 1,
+and every residue 0;
 and the lift's m~ correction and Shenoy-Kumaresan's alpha at their
 thresholds.  The kernels themselves are held against these plain versions on
 the card (``tests/test_torch_kernels.py``, ``chip_smoke.py``).  Without a
@@ -55,11 +58,13 @@ def ctxs(name):
         # its last prime made the special one, as a relinearizing set's is
         ref_sp = replace(RefParams.from_dict(SMALL).seal_params, has_special=True)
         port_sp = replace(PSUParams.from_dict(SMALL).seal_params, has_special=True)
-    elif name == "256M-1 at N=2048":
-        # 256M-1's q chain (two 30-bit primes and a 29-bit one, 2N | p - 1
-        # for N = 8192, so also for N = 2048) and its special prime
-        sp = PSUParams.load_file("parameters/256M-1.json").seal_params
-        fields = dict(poly_modulus_degree=2048, plain_modulus=sp.plain_modulus,
+    elif " at N=" in name:
+        # a parameter file's q chain, plain modulus and special prime at a
+        # smaller N (256M-1's: two 30-bit primes and a 29-bit one; 2N | p - 1
+        # for N = 8192, so also for N = 2048)
+        file, n = name.split(" at N=")
+        sp = PSUParams.load_file(f"parameters/{file}.json").seal_params
+        fields = dict(poly_modulus_degree=int(n), plain_modulus=sp.plain_modulus,
                       coeff_modulus=sp.coeff_modulus,
                       ref_coeff_modulus_bits=sp.ref_coeff_modulus_bits,
                       has_special=sp.has_special)
@@ -113,7 +118,8 @@ def test_table_layouts_match_the_kernels_header():
     struct's size."""
     header = open("apsu_tpu_torch/csrc/behz.cuh").read()
     for struct, layout in (("LiftTable", rns.LIFT_LAYOUT), ("ModTable", rns.MOD_LAYOUT),
-                           ("ScaleTable", rns.SCALE_LAYOUT), ("DivTable", rns.DIV_LAYOUT)):
+                           ("ScaleTable", rns.SCALE_LAYOUT), ("DivTable", rns.DIV_LAYOUT),
+                           ("DeltaTable", rns.DELTA_LAYOUT)):
         words = sum(int(np.prod(shape)) for _, shape in layout)
         assert f"sizeof({struct}) == {words} * 4" in header
         assert _struct_fields(header, struct) == list(layout)
@@ -124,7 +130,8 @@ def test_table_layouts_match_the_kernels_header():
     for table, layout in ((port.q.to_mont_table, rns.LIFT_LAYOUT),
                           (mc["lift"].table, rns.LIFT_LAYOUT), (port.q.mod_table, rns.MOD_LAYOUT),
                           (mc["scale"].table, rns.SCALE_LAYOUT),
-                          (port.div_drop[port.q.k].table, rns.DIV_LAYOUT)):
+                          (port.div_drop[port.q.k].table, rns.DIV_LAYOUT),
+                          (port.delta[port.q.k].table, rns.DELTA_LAYOUT)):
         assert table.dtype == np.uint32 and table.size == sum(
             int(np.prod(shape)) for _, shape in layout)
 
@@ -613,3 +620,131 @@ def test_rows_address_views_in_place(view):
     for r in range(rows):
         off = y.storage_offset() + (r // inner) * outer + (r % inner) * stride
         assert torch.equal(y.as_strided((3, 8), y.stride()[-2:], off), want[r])
+
+
+def test_in_place_operands_are_read_where_they_lie():
+    """G5 writes into its first operand where it lies: ``_in_place`` takes
+    what ``_rows`` reads in place and refuses what it would copy (three
+    runs of leading axes, lanes not contiguous)."""
+    base = torch.arange(4 * 5 * 2 * 3 * 8, dtype=torch.int32).reshape(4, 5, 2, 3, 8)
+    for view, f in ROW_VIEWS.items():
+        x = f(base)
+        if view == "three runs":
+            with pytest.raises(ValueError, match="in place"):
+                behz._in_place(x, 2, "g5")
+        else:
+            y, rows, where = behz._in_place(x, 2, "g5")
+            assert y.data_ptr() == x.data_ptr() and (rows, where) == behz._rows(x, 2)[1:]
+    with pytest.raises(ValueError, match="in place"):
+        behz._in_place(base.transpose(-1, -2), 2, "g5")
+
+
+# ---------------------------------------------------------------------------
+# G5
+# ---------------------------------------------------------------------------
+
+G5_SETS = ["small", "1M-2048-cmp", "1M-2048-com", "16M-4096 at N=2048"]
+# the constants c at t - 1 or 0, every residue p - 1, or the ciphertexts'
+# planes a slice of a middle axis (its component 0 a view of two runs)
+G5_FILLS = ["random", "c=t-1", "c=0", "p-1", "view"]
+
+
+def _ref_g5(ref, lvl):
+    """The reference's lines of the PS constant term at level ``lvl``
+    (apsu_tpu/engine/evaluator.py:941-972): Δ·c, component 0 plus Δ·c,
+    Montgomery Δ·c of planes 1.., acc[:, 1:]'s component 0 plus y, and
+    tot[:, :2] plus component 0 of the ciphertexts."""
+    q = ref.levels[lvl]
+
+    def run(ct, c, y, tot):
+        dm = ref._scale_impl(c, lvl)
+        return (dm, rmod.add_mod(ct[:, :, 0], dm, q.p_d), q.to_mont(dm[:, 1:]),
+                rmod.add_mod(ct[:, 1:, 0], y, q.p_d), rmod.add_mod(tot[:, :2], ct[:, 0], q.p_d))
+
+    return run
+
+
+@pytest.mark.parametrize("name", G5_SETS)
+@pytest.mark.parametrize("fill", G5_FILLS)
+def test_scale_add_matches_reference(name, fill):
+    """G5's plain versions at the top level and level 1, on ciphertexts
+    [R, P, 2, L, N] and constants c [R, P, N] < t: ``delta`` is the
+    reference's ``_scale_impl``; ``delta_add`` into component 0 (with the
+    Montgomery form of planes 1.. and without) and ``add_into`` (into
+    component 0 of ct[:, 1:], into tot[:, :2]) write the reference's sums
+    into the views they are given and nothing else."""
+    ref, port = ctxs(name)
+    t, n, R, P = port.t, port.n, 2, 3
+    rng = np.random.default_rng(P * n + t)
+    c = {"c=t-1": np.full((R, P, n), t - 1), "c=0": np.zeros((R, P, n))}.get(
+        fill, rng.integers(0, t, size=(R, P, n))).astype(np.uint32)
+    res = "p-1" if fill == "p-1" else None
+    for lvl in sorted({1, port.q.k}):
+        ds, primes = port.delta[lvl], port.q_primes[:lvl]
+        lead = 1 if fill == "view" else 0
+        full = _residues((R, P + lead, 2, lvl, n), primes, lvl, res)
+        ct = full[:, lead:]
+        y = _residues((R, P - 1, lvl, n), primes, lvl + 1, res)
+        tot = _residues((R, 3, lvl, n), primes, lvl + 2, res)
+        dm, c0, mont, lhs0, tot2 = _jit(_ref_g5(ref, lvl), ct, c, y, tot)
+        assert _eq(dm, behz.delta_plain(_t(c), ds))
+        for skip in (1, None):
+            x = _t(full).clone()
+            xv = x[:, lead:]
+            got, got_mont = behz.delta_add_plain(xv[:, :, 0], _t(c), ds, skip)
+            assert got.data_ptr() == xv[:, :, 0].data_ptr() and _eq(c0, xv[:, :, 0])
+            assert _eq(mont, got_mont) if skip else got_mont is None
+            assert np.array_equal(to_u32(xv[:, :, 1]), ct[:, :, 1])
+            assert np.array_equal(to_u32(x[:, :lead]), full[:, :lead])
+        x = _t(full).clone()
+        behz.add_into_plain(x[:, lead:][:, 1:, 0], _t(y), ds)
+        assert _eq(lhs0, x[:, lead:][:, 1:, 0])
+        x[:, lead:][:, 1:, 0] = _t(ct[:, 1:, 0])
+        assert np.array_equal(to_u32(x), full)
+        z = _t(tot).clone()
+        assert behz.add_into_plain(z[:, :2], _t(ct)[:, 0], ds).data_ptr() == z.data_ptr()
+        assert _eq(tot2, z[:, :2]) and np.array_equal(to_u32(z[:, 2]), tot[:, 2])
+
+
+def scale_add_model(m, x, table, lq, period, skip):
+    """G5's scale-add as the kernel computes it, on uint64 arrays over its
+    packed table: m [rows, N] < t, x [rows, Lq, N] -> (x + Δ·m, the
+    Montgomery form of Δ·m of the rows r with r % period >= skip, in order)."""
+    f = _fields(table, rns.DELTA_LAYOUT)
+    t = f["t"][0]
+    rm = _shoup_np(m, f["rt"][0], f["rt_sh"][0], t)
+    rem = np.where(rm + f["h"][0] >= t, rm + f["h"][0] - t, rm + f["h"][0])
+    out_x, out_m = [], []
+    for j in range(lq):
+        qj = f["q"][j]
+        d = np.where(f["hq"][j] >= rem, f["hq"][j] - rem, f["hq"][j] + qj - rem)
+        v = _shoup_np(d, f["tinv"][j], f["tinv_sh"][j], qj)
+        s = x[:, j] + v
+        out_x.append(np.where(s >= qj, s - qj, s))
+        out_m.append(_shoup_np(v, f["r1"][j], f["r1_sh"][j], qj))
+    keep = np.arange(m.shape[0]) % period >= skip
+    return (np.stack(out_x, axis=1).astype(np.uint32),
+            np.stack(out_m, axis=1)[keep].astype(np.uint32))
+
+
+@pytest.mark.parametrize("name", G5_SETS)
+def test_scale_add_model_matches_plain(name):
+    """G5's arithmetic over its packed table (``DeltaScale.table``) equals
+    ``delta_add_plain`` bit for bit at every level, c at 0, t - 1 and
+    random, x at p - 1 and random: the table holds the plain version's
+    constants."""
+    _, port = ctxs(name)
+    t, n, R, P = port.t, port.n, 3, 4
+    c = np.random.default_rng(t).integers(0, t, size=(R, P, n)).astype(np.uint32)
+    c[0], c[1, :, : n // 2] = t - 1, 0
+    for lvl in range(1, port.q.k + 1):
+        ds = port.delta[lvl]
+        x = _residues((R, P, lvl, n), port.q_primes[:lvl], lvl)
+        x[2] = _residues((P, lvl, n), port.q_primes[:lvl], 0, "p-1")
+        xt = _t(x).clone()
+        _, mont = behz.delta_add_plain(xt, _t(c), ds, 1)
+        got_x, got_m = scale_add_model(c.reshape(R * P, n).astype(np.uint64),
+                                       x.reshape(R * P, lvl, n).astype(np.uint64), ds.table,
+                                       lvl, P, 1)
+        assert np.array_equal(got_x, to_u32(xt).reshape(R * P, lvl, n))
+        assert np.array_equal(got_m, to_u32(mont).reshape(R * (P - 1), lvl, n))

@@ -711,6 +711,70 @@ def test_rns_divround_kernel_matches_plain(name, fill):
                                behz.keyswitch_div_plain(uv, dv, qp, div))
 
 
+# G5 at the PS cells' constant term: (rows R = bundles x caches, the
+# evaluation level's limbs) of each cell's _ps_rows, nh + 1 planes from its
+# parameters
+SCALE_ADD_CELLS = {"16M-4096": (24, 4), "1M-2048-com": (45, 3)}
+
+
+def _scale_add_cases(bfv, name):
+    """(level, R, P) of the calls to hold G5 at: every level at a small
+    shape, and a cell's own [R, nh + 1] at its evaluation level."""
+    cases = [(lvl, 2, 3) for lvl in range(1, bfv.q.k + 1)]
+    if name in SCALE_ADD_CELLS:
+        pp = PSUParams.load_file(f"parameters/{name}.json")
+        R, lvl = SCALE_ADD_CELLS[name]
+        nh = pp.table_params.max_items_per_bin // (pp.query_params.ps_low_degree + 1)
+        cases.append((lvl, R, nh + 1))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GLUE_SETS + ["1M-2048-com"])
+@pytest.mark.parametrize("fill", FILLS)
+def test_scale_add_kernel_matches_plain(name, fill):
+    """G5 in its three modes against its plain versions on the same CUDA
+    tensors, at every level ("ps": 9 limbs, the MAXQ build) and at the PS
+    cells' [R, nh + 1, 2, L, N]: Δ·c alone; added into component 0 of the
+    inner sums (a view of one run, and of two when the planes are a slice),
+    with the Montgomery form of planes 1..nh and without; the adds into
+    acc[:, 1:]'s component 0 (two runs) and tot[:, :2].  Each writes its
+    view and nothing else; a view of three runs is refused."""
+    bfv = _glue_ctx(name)
+    for lvl, R, P in _scale_add_cases(bfv, name):
+        ds, primes, n = bfv.delta[lvl], bfv.q_primes[:lvl], bfv.n
+        c = torch.randint(0, bfv.t, (R, P + 1, n), dtype=torch.int32, device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(lvl))
+        if fill:
+            c[:, :, : n // 2] = 0 if fill == "zero" else bfv.t - 1
+        cs = c[:, 1:]   # [R, P, N], a view of two runs
+        assert torch.equal(behz.delta_cuda(cs, ds), behz.delta_plain(cs, ds))
+        for lead in (0, 1):   # the planes [R, P] whole, or a slice of [R, P + 1]
+            full = _glue_residues((R, P + lead, 2, lvl, n), primes, lvl + lead, fill)
+            for skip in (1, None):
+                x, want = full.clone(), full.clone()
+                before = behz.scale_add_launches
+                _, got_m = behz.delta_add_cuda(x[:, lead:, 0], cs, ds, skip)
+                _, want_m = behz.delta_add_plain(want[:, lead:, 0], cs, ds, skip)
+                assert behz.scale_add_launches == before + 1
+                assert torch.equal(x, want)
+                assert got_m is None if skip is None else torch.equal(got_m, want_m)
+        acc = _glue_residues((R, P, 2, lvl, n), primes, lvl + 2, fill)
+        y = _glue_residues((R, P - 1, lvl, n), primes, lvl + 3, fill)
+        x, want = acc.clone(), acc.clone()
+        behz.add_into_cuda(x[:, 1:, 0], y, ds)
+        behz.add_into_plain(want[:, 1:, 0], y, ds)
+        assert torch.equal(x, want)
+        tot = _glue_residues((R, 3, lvl, n), primes, lvl + 4, fill)
+        z, want = tot.clone(), tot.clone()
+        behz.add_into_cuda(z[:, :2], acc[:, 0], ds)
+        behz.add_into_plain(want[:, :2], acc[:, 0], ds)
+        assert torch.equal(z, want)
+    three = torch.zeros((2, 3, 4, bfv.q.k, bfv.n), dtype=torch.int32, device="cuda")[:, 1:, 1:]
+    with pytest.raises(ValueError, match="in place"):
+        behz.add_into_cuda(three, three.clone(), bfv.delta[bfv.q.k])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["256K-2048-com", "16M-4096"])
 def test_glue_on_the_card_matches_the_cpu(name):
@@ -761,7 +825,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_glue_kernel_wrappers_refuse_cpu_tensors():
-    """G1-G4's CUDA wrappers raise on CPU tensors of the right shapes."""
+    """G1-G5's CUDA wrappers raise on CPU tensors of the right shapes."""
     bfv = BfvContext(PSUParams.load_file("parameters/256K-2048-com.json").seal_params, "cpu")
     lvl = bfv.q.k
     mc = bfv._mul_ctx(lvl)
@@ -784,6 +848,9 @@ def test_glue_kernel_wrappers_refuse_cpu_tensors():
             _residues((2, 2, qp.k, q.n), qp.primes, "cpu", seed=5),
             _residues((2, 3, q.k, q.n), q.primes, "cpu", seed=6), qp, bfv._div_p_level(lvl)),
         lambda: behz.mod_switch_cuda(x, bfv.div_drop, lvl, 1),
+        lambda: behz.delta_cuda(x[:, 0], bfv.delta[lvl]),
+        lambda: behz.delta_add_cuda(x.clone(), x[:, 0], bfv.delta[lvl]),
+        lambda: behz.add_into_cuda(x.clone(), x, bfv.delta[lvl]),
     ]
     for case in cases:
         with pytest.raises(ValueError, match="CUDA"):

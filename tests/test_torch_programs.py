@@ -368,6 +368,7 @@ GRAPH_NODES = [
     "_ZN44_GLOBAL__N__35cf1d41_11_mont_mac_cu_5190bce415mont_mac_kernelILi0EEEvPKjNS_4GeomE",
     "_ZN50_GLOBAL__N__41bfcfc6_17_behz_scaledown_cu_4a7913bb21behz_scaledown_kernelILi3ELi6ELb1EE",
     "_ZN48_GLOBAL__N__a95526ad_15_rns_divround_cu_5ba317bb19rns_divround_kernelILi0ELi8EEEvPKj",
+    "_ZN45_GLOBAL__N__f301f727_12_scale_add_cu_eb79866816scale_add_kernelILi1ELi8EEEvPKjN4behz4Rows",
     "_ZN2at6native29vectorized_elementwise_kernelILi2ENS0_15CUDAFunctor_addIlEESt5arrayIPcLm3EEEE",
     "_ZN2at6native40_GLOBAL__N__0f1a8107_8_Shape_cu_49f7391c30CatArrayBatchedCopy_vectorizedINS1_",
 ]
@@ -384,7 +385,7 @@ def test_graph_kernel_nodes_map_to_their_counters():
                    "behz.lift_launches": 3, "behz.mac_launches": 1,
                    "behz.scaledown_launches": 1, "behz.divround_launches": 1,
                    "behz.lift_general_launches": 1, "behz.scaledown_general_launches": 0,
-                   "ctr_mod.launches": 0}
+                   "ctr_mod.launches": 0, "behz.scale_add_launches": 1}
 
 
 def _need_cuda():
@@ -395,7 +396,8 @@ def _need_cuda():
 @pytest.mark.cuda
 def test_graphed_query_equals_eager_on_the_card():
     """On the card, the 256K-2048-com query through its CUDA graphs equals
-    the same query under eager(), bit for bit, with the same launches."""
+    the same query under eager(), bit for bit, with the same launches, G5's
+    (the PS constant term) among them."""
     _need_cuda()
     pp = PSUParams.load_file(PS_PARAMS)
     rp, _, r_db, cpu_db, reqs = _ps_set()
@@ -414,6 +416,11 @@ def test_graphed_query_equals_eager_on_the_card():
     eager_res, eager_n = got["eager"][0]
     for res, n in got["graph"][1:] + got["eager"]:   # the first graphed call also captured
         assert torch.equal(res, eager_res) and n == eager_n
+    # G5 four times a row chunk of the PS evaluation: the constant into the
+    # inner sums, its transform into their NTT form, the outer sum's
+    # constant component, the mask
+    g5 = eager_n[[c for _, c, _ in counts.COUNTERS].index("scale_add_launches")]
+    assert g5 and g5 % 4 == 0
     assert torch.equal(got["graph"][0][0], eager_res)
     r_resp = RefReceiver(rp, r_db, rng=np.random.default_rng(9)).run_query(reqs[0][0])
     assert np.array_equal(_u32(r_resp.results), eager_res.numpy().view(np.uint32))
