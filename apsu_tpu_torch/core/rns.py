@@ -247,10 +247,10 @@ class ExactLiftConv:
     def table(self) -> np.ndarray:
         """G1's: src's to_mont for the q output, and the lift with dst's R
         folded into its two last constants (the output is dst.to_mont of
-        the lift).  The first design (``csrc/compare/glue_pr12_lift.cu``)
-        reads ``m`` then ``a`` and ``k``; the kernel's one lazy sum a limb
-        reads ``ma`` (``m`` times ``a``), ``k`` and ``kn`` (−``k``) and
-        reduce64's constants."""
+        the lift).  The first design (``csrc/compare/glue_pr12_lift.cu`` at
+        f5d52af) reads ``m`` then ``a`` and ``k``; the kernel's one lazy sum
+        a limb reads ``ma`` (``m`` times ``a``), ``k`` and ``kn`` (−``k``)
+        and reduce64's constants."""
         src, dst, mt = self.src, self.dst, 1 << 16
         qs, bs, Q = src.primes, dst.primes, src.prod
         m = np.array([[ph % d for d in bs] for ph in src.phat], dtype=np.uint32)
@@ -345,10 +345,10 @@ class ScaleDown:
 
     @functools.cached_property
     def table(self) -> np.ndarray:
-        """G3's: the first design (``csrc/compare/glue_pr12_scaledown.cu``)
-        reads the fields up to ``pbq_sh``; the kernel takes one lazy sum for
-        each output, whose constants fold the steps between: w_j = x_b,j·wx_j
-        + Σ_i y_i·wy_ij is z_j (j below m_sk, the fast floor times
+        """G3's: the first design (``csrc/compare/glue_pr12_scaledown.cu`` at
+        f5d52af) reads the fields up to ``pbq_sh``; the kernel takes one lazy
+        sum for each output, whose constants fold the steps between: w_j =
+        x_b,j·wx_j + Σ_i y_i·wy_ij is z_j (j below m_sk, the fast floor times
         B̂_j^{-1}) or y_sk, α = Σ_j w_j·ak_j, and out_i = Σ_j z_j·mb_ji +
         |α|·(pbq_i or npbq_i)."""
         q, bsk, sk, t = self.q, self.bsk, self.sk_conv, self.t

@@ -24,7 +24,7 @@
 // and to MAXQ, and a launch takes the first when its limb counts fit: the
 // first design's G1, G3 and G4 each read 5-9% faster that way than on one
 // build at MAXQ over the 16M-4096 warm query's calls
-// (csrc/compare/glue_max_*.cu, PERF.md section 6).
+// (csrc/compare/glue_max_*.cu at f5d52af, PERF.md section 6).
 
 #pragma once
 
@@ -132,7 +132,8 @@ struct LiftTable {
   uint32_t a[MAXB], a_sh[MAXB];          // m~^-1 * R mod b_j
   uint32_t k[MAXB], k_sh[MAXB];          // Q * m~^-1 * R mod b_j
   // appended for the lift's lazy sums (csrc/behz_lift.cu); the fields above
-  // keep their offsets for the first design (csrc/compare/glue_pr12_*.cu)
+  // keep their offsets for the first design (csrc/compare/glue_pr12_*.cu at
+  // f5d52af)
   uint32_t ma[MAXQ][MAXB];               // qhat_i * m~^-1 * R mod b_j
   uint32_t kn[MAXB];                     // -Q * m~^-1 * R mod b_j
   uint32_t b32[MAXB], b32_sh[MAXB], b_one_sh[MAXB];   // reduce64's constants of b_j
@@ -159,7 +160,8 @@ struct ScaleTable {
   uint32_t msk_half;                     // (m_sk + 1) / 2
   uint32_t pbq[MAXQ], pbq_sh[MAXQ];      // prod(B) mod q_i
   // appended for G3's lazy sums (csrc/behz_scaledown.cu); the fields above
-  // keep their offsets for the first design (csrc/compare/glue_pr12_*.cu).
+  // keep their offsets for the first design (csrc/compare/glue_pr12_*.cu at
+  // f5d52af).
   // w_j is z_j for j < Lb - 1 and y_sk for m_sk.
   uint32_t wx[MAXB];                     // t * R^-1 * Q^-1 (* Bhat_j^-1) mod b_j
   uint32_t wy[MAXQ][MAXB];               // -qhat_i * Q^-1 (* Bhat_j^-1) mod b_j

@@ -16,9 +16,9 @@
 // threads read neighbouring lanes, and the tables sit in the constant bank
 // (kernel parameters).  The lift is built for every (Lq, Lb) of behz.cuh's
 // BEHZ_EXACT_PAIRS with each loop exactly as long as its limb count (the
-// first design's loops, csrc/compare/glue_pr12_lift.cu, were unrolled to the
-// limits and guarded at run time), and once more for any other pair (the
-// general build); a thread walks LIFT_ROWS_PER_BLOCK rows with the next
+// first design's loops, csrc/compare/glue_pr12_lift.cu at f5d52af, were
+// unrolled to the limits and guarded at run time), and once more for any
+// other pair (the general build); a thread walks LIFT_ROWS_PER_BLOCK rows with the next
 // row's loads in flight during the current row's arithmetic.  Digits and
 // scale are built with their loops unrolled to behz.cuh's SMALL_Q or MAXQ
 // and guarded by the run-time limb counts.
@@ -53,7 +53,7 @@ enum Mode { LIFT = 0, DIGITS = 1, SCALE = 2 };
 
 // rows a block of the lift walks, each row's loads in flight during the
 // arithmetic of the row before it (one row a block ran slower in turns:
-// csrc/compare/glue_step2_lift.cu, PERF.md section 6)
+// csrc/compare/glue_step2_lift.cu at f5d52af, PERF.md section 6)
 constexpr int LIFT_ROWS_PER_BLOCK = 4;
 
 // digits and scale

@@ -29,9 +29,9 @@
 // 84 bytes against 126 widening products, 16 reductions and 6 Shoup
 // products.  The kernel is built for every (Lq, Lb) of behz.cuh's
 // BEHZ_EXACT_PAIRS, with each loop exactly as long as its limb count (the
-// first design's loops, csrc/compare/glue_pr12_scaledown.cu, unrolled to
-// the limits and guarded at run time, spent slots on every guarded-off
-// iteration), and once more for any other pair (the general build).  One
+// first design's loops, csrc/compare/glue_pr12_scaledown.cu at f5d52af,
+// unrolled to the limits and guarded at run time, spent slots on every
+// guarded-off iteration), and once more for any other pair (the general build).  One
 // thread per (row, lane); neighbouring threads read neighbouring lanes; a
 // block takes one row (ROWS_PER_BLOCK), all of whose loads are in flight
 // before its arithmetic.
@@ -50,7 +50,7 @@ namespace {
 
 // rows a block walks: 1, so a block takes one row unless there are more
 // rows than a grid's y (4 ran slower in turns:
-// csrc/compare/glue_rows4_scaledown.cu, PERF.md section 6)
+// csrc/compare/glue_rows4_scaledown.cu at f5d52af, PERF.md section 6)
 constexpr int ROWS_PER_BLOCK = 1;
 
 // QN, BN: the limb counts (EXACT) or the limits (general build, guarded by

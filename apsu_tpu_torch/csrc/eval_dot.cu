@@ -56,7 +56,7 @@
 //    stages and the ring (about 24 KB a 128-lane block: a deeper ring
 //    crowded the card's memory and ran slower on the H100).  16-byte
 //    cp.async by the producer warp in place of the bulk copies, timed in
-//    turns (chip_smoke.py --compare-eval-dot), was no faster.
+//    turns (chip_smoke.py --compare-eval-dot at f5d52af), was no faster.
 // 5. Arithmetic without division: two u64 sums a cache, one per component.
 //    Every residue is < p < 2^30, so a product is < p^2 < 2^60.  Every
 //    FOLD_EVERY = 8 products the high word of each sum is brought below p
@@ -75,7 +75,7 @@
 // plane j of the cache pairs with power j-1.  The bulk copies need
 // N % 4 == 0 and 16-byte aligned tensors (the wrapper checks).  The
 // helpers below are the ones csrc/ps_inner.cu uses; each source compiles
-// alone, as chip_smoke.py --compare-eval-dot builds them.
+// alone (ops/_build.py builds each on its own).
 //
 // The entry point allocates nothing, launches on the caller's stream and
 // returns the launch's cudaError_t.

@@ -349,8 +349,8 @@ cudaError_t plan(Args& a, int B, int& smem, int& occ) {
   // blocks' rows plus the two rows' worth of low planes each block loads,
   // then waits on its last blocks, a tail that grows with the rows a block.
   // The tail's weight, occ^2 / 10 blocks, is fitted to the four shapes
-  // chip_smoke.py's compare_ps_inner times on the H100.  Take the count
-  // that minimises the sum.
+  // chip_smoke.py's compare_ps_inner (at f5d52af) timed on the H100.  Take
+  // the count that minimises the sum.
   const int rows = a.C * a.nseg;
   const int64_t tiles = static_cast<int64_t>((a.N + TILE - 1) / TILE) * a.L * B;
   const int most = rows < 64 ? rows : 64;

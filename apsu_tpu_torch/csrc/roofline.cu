@@ -25,13 +25,13 @@
 // own counter and branch: the tool counts instructions there.
 //
 // What bounds each arm (chip_smoke.py --compare-roofline with
-// csrc/compare/k9_probes.cu, on an H100 80GB HBM3 at 700 W; the readings are
-// in PERF.md section 6): IMAD.WIDE.U32 and IMAD.HI.U32 each hold the FMA pipe
-// about twice as long as IMAD, since a dependent chain of either takes about
-// twice mul32's time.  So mul_wide (one IMAD.WIDE.U32, its LOP3 on the ALU
-// pipe) cannot pass 1/2 of its bound, shoup_lazy (IMAD.HI and two IMAD) 3/4,
-// mont_mul (an IMAD.WIDE.U32, an IMAD and an IMAD.HI) 3/5; each reads over
-// 90% of that cap, as mul32 does of its own bound.
+// csrc/compare/k9_probes.cu, both at f5d52af, on an H100 80GB HBM3 at 700 W;
+// the readings are in PERF.md section 6): IMAD.WIDE.U32 and IMAD.HI.U32 each
+// hold the FMA pipe about twice as long as IMAD, since a dependent chain of
+// either takes about twice mul32's time.  So mul_wide (one IMAD.WIDE.U32, its
+// LOP3 on the ALU pipe) cannot pass 1/2 of its bound, shoup_lazy (IMAD.HI
+// and two IMAD) 3/4, mont_mul (an IMAD.WIDE.U32, an IMAD and an IMAD.HI) 3/5;
+// each reads over 90% of that cap, as mul32 does of its own bound.
 //
 // The grid stays 256-thread blocks (the reference's (8,512,128) block is
 // 131,072 threads, 512 blocks).  A warp issues one instruction for all its
@@ -46,9 +46,9 @@
 // serves the stream arm of vpu_roofline.py.  It is bound by device-memory
 // bytes, and each 16-byte vector is read and written once: all a design can
 // choose is how many loads a thread keeps in flight and how the blocks fill
-// the card.  Timed in turns with the sources of csrc/compare/ (chip_smoke.py
-// --compare-roofline, on an H100 80GB HBM3 at 700 W; readings in PERF.md
-// section 6), the fastest is one plain kernel at two shapes:
+// the card.  Timed in turns with the sources of csrc/compare/ at f5d52af (its
+// chip_smoke.py --compare-roofline, on an H100 80GB HBM3 at 700 W; readings
+// in PERF.md section 6), the fastest is one plain kernel at two shapes:
 //   up to SMALL_VECS vectors, 256-thread blocks of 4 vectors a thread: a
 //   launch of that size is about one wave, so every load is in flight at
 //   once, and 128 x 1 blocks (k10_t128u1.cu) were slower at the ntt4p_gl_ab
@@ -100,8 +100,8 @@ __device__ __forceinline__ uint64_t mad_wide(uint32_t a, uint32_t b, uint64_t c)
 // one VIADDMNMX.U32 min(t, t - p) on the ALU pipe, which is `t >= p ? t - p
 // : t` for every u32 t and p < 2^32 (below p the difference wraps above t).
 // Written as PTX's multiprecision pair mad.lo.cc / madc.hi: from mad.wide
-// (m*p + w) or from C++ (csrc/compare/k9_mont_cxx.cu) ptxas took the high
-// word by IMAD.WIDE.U32 and a 64-bit add on the ALU pipe, one more ALU
+// (m*p + w) or from C++ (csrc/compare/k9_mont_cxx.cu at f5d52af) ptxas took
+// the high word by IMAD.WIDE.U32 and a 64-bit add on the ALU pipe, one more ALU
 // instruction a step, and from a compare and select more again.
 __device__ __forceinline__ uint32_t mont_step(uint32_t acc, uint32_t x, uint32_t p,
                                               uint32_t pni) {

@@ -18,15 +18,12 @@ The reference's analogue is SEAL's per-parameter-set chain-index choice
 inside eval_patstock (receiver/apsu/bin_bundle.cpp:192-360
 operates at a fixed chain depth picked by psu_params.cpp); here the choice
 is per-file and measurement-backed.
-
-Set APSU_NO_LEVEL_OVERRIDES=1 to ignore the table (calibration runs do).
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
-import os
 from typing import Dict, Optional
 
 MIN_BUDGET_BITS = 6.0  # calibration refuses entries with less residual room
@@ -108,8 +105,6 @@ MEASURED: Dict[str, Dict[str, int]] = {
 
 
 def lookup(params) -> Optional[Dict[str, int]]:
-    if os.environ.get("APSU_NO_LEVEL_OVERRIDES"):
-        return None
     return MEASURED.get(params_key(params))
 
 
@@ -123,10 +118,7 @@ def powers_at_eval(params) -> bool:
     runs on eval-level limbs, saving (k_query - k_eval)/k_query of the
     powers phase.  The trade is noise (the switch floor enters BEFORE the
     DAG and is amplified by its depth), so the flag is only recorded when
-    tools/level_calibrate.py measured the dense probe exact with margin.
-    APSU_POWERS_AT_EVAL=1 forces it globally (calibration/experiments)."""
-    if os.environ.get("APSU_POWERS_AT_EVAL"):
-        return True
+    tools/level_calibrate.py measured the dense probe exact with margin."""
     ov = lookup(params)
     return bool(ov and ov.get("at_eval"))
 
@@ -138,11 +130,7 @@ def defer_relin(params) -> bool:
     relins shrink from 6x7 to 4x5 digit-NTT planes.  The trade is noise
     (the key-switch additive term enters at the SMALLER modulus, ~q/P
     above the mod-switch floor), so the flag is only recorded after
-    tools/level_calibrate.py measured the dense probe exact with margin.
-    APSU_DEFER_RELIN=1/0 forces it (calibration/experiments)."""
-    env = os.environ.get("APSU_DEFER_RELIN")
-    if env is not None:
-        return env != "0"
+    tools/level_calibrate.py measured the dense probe exact with margin."""
     ov = lookup(params)
     return bool(ov and ov.get("defer_relin"))
 

@@ -260,8 +260,9 @@ def eval_dot_plan(B: int, C: int, D: int, L: int, N: int, sms: int = H100_SMS,
     and plane splits it takes the plan whose clusters fit, nearest that
     load, then with its blocks spread most evenly over the SMs
     (ceil(n / sms) / (n / sms) least), then the larger tile and the fewer
-    blocks.  (Fitted to K3's five path shapes on the H100, with
-    chip_smoke.py --compare-eval-dot timing the pick.)"""
+    blocks.  (Fitted to K3's five path shapes on the H100, each pick timed
+    in turns by ``chip_smoke.py --compare-eval-dot`` at f5d52af; the
+    script now times K3 alone at those shapes, ``DOT_CASES``.)"""
     def cost(plan):
         n = plan.grid[0] * plan.grid[1] * plan.grid[2]
         fits = resident is None or n // plan.split <= resident(plan)

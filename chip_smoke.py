@@ -1,15 +1,7 @@
 #!/usr/bin/env python3
 """Drive the apsu_tpu_torch port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--seed S] [--profile] [--compare-ntt SRC ...]
-                          [--compare-ps-inner SRC ...] [--compare-eval-dot SRC ...]
-                          [--compare-roofline SRC ...]
-    python3 chip_smoke.py --profile-turns ROOT
-
-The second form runs only the profiled queries (``profile_turns``): the warm
-16M-4096 and 1M-2048-cmp queries of this checkout's package and of checkout
-ROOT's, each in a process of its own, in turns, each profiled once with its
-device time charged to the port's functions.
+    python3 chip_smoke.py [--seed S] [--profile]
 
 Phases, each printing one JSON object per line:
 
@@ -154,27 +146,7 @@ Phases, each printing one JSON object per line:
    ``torch.cuda.memory_reserved()`` after the drop, after an eager query,
    after the capture and after ``strip`` drops the programs; then the
    ``programs_summary`` line;
-16. with ``--compare-ntt``, each given NTT source (an earlier ``ntt.cu``, or
-   a variant of it) built alone, checked and timed in turns with
-   ``csrc/ntt.cu`` at the two largest NTT shapes (``compare_ntt``); with
-   ``--compare-ps-inner``, each given PS inner-sum source likewise, at K2's
-   four recorded shapes, with each build's registers, spills and SASS calls
-   (``compare_ps_inner``); with ``--compare-eval-dot``, each given
-   dot-product source likewise, at ``DOT_CASES``, each launch on inputs
-   out of L2 (``compare_eval_dot``); with ``--compare-roofline``, each given
-   K9/K10 source likewise: K10 at ragged lengths and 1 GiB, then streaming
-   1 GiB and at each ``ntt4p_gl_ab`` row graph-replayed, beside
-   ``torch.add``; K9 each arm (and the chain probes a source may add) at
-   the tool's block, mont_mul also at 4x; with each build's registers,
-   spills, SASS ``CALL`` and ``sass_per_step``; a checkout root given
-   there adds its ``roofline.cu``, and its launch path's split, its eager
-   ``add_one`` beside ``torch.add`` and its ``ntt4p_gl_ab`` run in processes
-   of their own, in turns with this checkout's (``compare_roofline``,
-   ``launch_split``); with ``--compare-glue``, each given G1-G4 source
-   (``csrc/compare/glue_*.cu``) built alone, checked and timed in turns
-   with the package's kernels at every G call of phase 5's and phase 6's
-   warm queries (``compare_glue``);
-17. the ``kernels`` summary line (K1-K3, K9, K10, then G1-G5 with their
+16. the ``kernels`` summary line (K1-K3, K9, K10, then G1-G5 with their
    launches on the in-process paths, then M1 with its launches on the
    ``CsRng`` path), then ``{"ok": true, "device": ...}``.
 With ``--profile``, one warm query of phases 5, 6, 7 and 14 runs under
@@ -192,6 +164,7 @@ from __future__ import annotations
 import argparse
 import ast
 import contextlib
+import importlib.util
 import json
 import logging
 import os
@@ -209,10 +182,19 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 rate; INT32 lanes = 132 SMs x 64
-# INT32 units x 1.98 GHz boost (Hopper architecture white paper)
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+def _yardstick():
+    """The benchmark's table of peaks and K2's and K3's work
+    (``benchmark/harness/yardstick.py``), loaded by its path so that no
+    module named ``harness`` goes on ``sys.path``."""
+    spec = importlib.util.spec_from_file_location(
+        "yardstick", ROOT / "benchmark" / "harness" / "yardstick.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+yardstick = _yardstick()
 # every value is an integer residue, so a kernel must equal its plain version
 TOLERANCE = 0
 # the PS path: caches per bundle of the dense DB, and warm queries
@@ -287,10 +269,11 @@ def max_abs_err(a, b) -> int:
 
 
 def bound_ms(nbytes, mults):
-    """Least time at the published peaks: the bytes at the HBM rate or the
-    32-bit multiplies at the INT32 rate, the larger, and which it is."""
-    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, mults / INT32_OPS_PER_S * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+    """Least time at the published peaks (the yardstick's ``bound_s``), and
+    which of its terms sets it: the bytes at the HBM rate or the 32-bit
+    multiplies at the INT32 rate."""
+    by_bytes = nbytes / yardstick.HBM_BYTES_PER_S >= mults / yardstick.INT32_OPS_PER_S
+    return yardstick.bound_s(nbytes, mults) * 1e3, "bytes" if by_bytes else "operations"
 
 
 def ceiling_ms(work, ceilings, product):
@@ -318,38 +301,6 @@ def ntt_work(shape, L, n, inverse):
 
 def ntt_bound_ms(shape, L, n, inverse):
     return bound_ms(*ntt_work(shape, L, n, inverse)[::2])
-
-
-def ps_work(low_shape, cache_shape):
-    """Bytes, 32x32->64 products and 32-bit multiplies of the PS inner sums:
-    cache planes 1..ph-1 of every segment, the low powers and the output moved
-    once; one product per plane, lane and component (2 components), 2
-    multiplies each."""
-    B, ell, _, L, N = low_shape
-    R, nseg, ph = cache_shape[:3]
-    nbytes = (R * nseg * (ph - 1) * L * N + B * ell * 2 * L * N + R * nseg * 2 * L * N) * 4
-    products = 2 * R * nseg * (ph - 1) * L * N
-    return nbytes, products, 2 * products
-
-
-def ps_bound_ms(low_shape, cache_shape):
-    return bound_ms(*ps_work(low_shape, cache_shape)[::2])
-
-
-def dot_work(powers_shape, cache_shape):
-    """Bytes, 32x32->64 products and 32-bit multiplies of the dot product:
-    cache planes 1..D of every cache, the powers and the output moved once;
-    one product per plane, lane and component (2 components), 2 multiplies
-    each."""
-    B, D, _, L, N = powers_shape
-    C = cache_shape[1]
-    nbytes = (B * C * D * L * N + B * D * 2 * L * N + B * C * 2 * L * N) * 4
-    products = 2 * B * C * D * L * N
-    return nbytes, products, 2 * products
-
-
-def dot_bound_ms(powers_shape, cache_shape):
-    return bound_ms(*dot_work(powers_shape, cache_shape)[::2])
 
 
 def m1_thread_ops(lib) -> int:
@@ -381,7 +332,8 @@ def m1_bound_ms(work):
     integer operations at the INT32 rate or its shared-memory words at the
     banks' rate, the largest, and which it is."""
     nbytes, ops, smem = work
-    t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / INT32_OPS_PER_S * 1e3,
+    t = {"bytes": nbytes / yardstick.HBM_BYTES_PER_S * 1e3,
+         "operations": ops / yardstick.INT32_OPS_PER_S * 1e3,
          "shared memory": smem / SMEM_WORDS_PER_S * 1e3}
     by = max(t, key=t.get)
     return t[by], by
@@ -449,7 +401,6 @@ def csrng_path(params, db, req, oracle, seed) -> dict:
     the host draw of the same stream and passes the planted-match oracle."""
     from apsu_tpu_torch.api.parties import Receiver
     from apsu_tpu_torch.mpc.prg import CsRng
-    from apsu_tpu_torch.ops import ctr_mod
     from apsu_tpu_torch.utils.stopwatch import GLOBAL
 
     key = seed.to_bytes(8, "little", signed=True) + b"chip-smoke mask key 24 b"
@@ -457,7 +408,7 @@ def csrng_path(params, db, req, oracle, seed) -> dict:
     t = params.seal_params.plain_modulus
     queries = WARM + 1
     drawn = GLOBAL.counts().get("prepare.mask.device", 0)
-    ctr_mod.launches = 0
+    reset_launches()
     oracles, same = [], []
     for _ in range(queries):
         resp = recv.run_query(req)
@@ -465,7 +416,8 @@ def csrng_path(params, db, req, oracle, seed) -> dict:
         want = host.integers(0, t, size=mask.shape, dtype=np.uint64).astype(np.uint32)
         same.append(bool(np.array_equal(mask, want)))
         oracles.append(list(oracle(resp, mask)))
-    out = {"csrng_path": "16M-4096", "queries": queries, "launches": ctr_mod.launches,
+    out = {"csrng_path": "16M-4096", "queries": queries,
+           "launches": launch_counts()["ctr_mod"],
            "mask_device_count": GLOBAL.counts().get("prepare.mask.device", 0) - drawn,
            "masks_equal_host_draw": same, "oracle_per_query": oracles}
     emit(out)
@@ -526,7 +478,7 @@ def check_ps_inner(low, cache5, q, label):
     err = max_abs_err(k, pl)
     if err > TOLERANCE or not torch.equal(k, pl):
         raise AssertionError(f"PS inner kernel != plain ({label}): {err}")
-    b_ms, b_by = ps_bound_ms(tuple(low.shape), tuple(cache5.shape))
+    b_ms, b_by = bound_ms(*yardstick.ps_work(tuple(low.shape), tuple(cache5.shape)))
     res = {
         "check": "ps_inner", "case": label, "low": list(low.shape), "cache5": list(cache5.shape),
         "cache5_row_stride": cache5.stride(0), "primes_bits": [p.bit_length() for p in q.primes],
@@ -548,7 +500,7 @@ def check_eval_dot(powers, cache, base, label):
     err = max_abs_err(k, pl)
     if err > TOLERANCE or not torch.equal(k, pl):
         raise AssertionError(f"dot-product kernel != plain ({label}): {err}")
-    b_ms, b_by = dot_bound_ms(tuple(powers.shape), tuple(cache.shape))
+    b_ms, b_by = bound_ms(*yardstick.dot_work(tuple(powers.shape), tuple(cache.shape)))
     res = {
         "check": "eval_dot", "case": label, "powers": list(powers.shape),
         "cache": list(cache.shape), "primes_bits": [p.bit_length() for p in base.primes],
@@ -619,10 +571,11 @@ def recording_kernels(calls: dict, on: bool = True, keep: bool = True):
     replay of a program adds its launches to "replayed" (counter name ->
     launches), so recorded calls + replayed launches = launches."""
     from apsu_tpu_torch.engine import programs
-    from apsu_tpu_torch.ops import behz, counts
+    from apsu_tpu_torch.ops import behz
     from apsu_tpu_torch.ops import ntt as ntt_op
     from apsu_tpu_torch.ops import polyeval
 
+    names = [name for _, _, name, _ in counters()]
     real_ntt, real_dot, real_ps = ntt_op.ntt_cuda, polyeval.eval_dot_cuda, polyeval.ps_inner_cuda
     real_glue = {name: getattr(behz, name) for name in GLUE_WRAPPERS}
     real_replay = programs.Program.replay
@@ -655,9 +608,8 @@ def recording_kernels(calls: dict, on: bool = True, keep: bool = True):
 
     def replay(prog):
         real_replay(prog)
-        for (mod, counter, _), n in zip(counts.COUNTERS, prog.per_call):
-            key = f"{mod.__name__}.{counter}"
-            calls["replayed"][key] = calls["replayed"].get(key, 0) + n
+        for name, n in zip(names, prog.per_call):
+            calls["replayed"][name] = calls["replayed"].get(name, 0) + n
 
     if on:
         ntt_op.ntt_cuda, polyeval.eval_dot_cuda, polyeval.ps_inner_cuda = ntt, dot, ps
@@ -690,36 +642,40 @@ def kernel_calls() -> dict:
     return {"ntt": [], "eval_dot": [], "ps_inner": [], "glue": [], "replayed": {}}
 
 
-# the counters of the kernels whose every call phases 9, 10 and 13 record
-# (``ops/counts.py`` names), by the name in ``kernel_calls``
-RECORDED_COUNTERS = {"ntt": "apsu_tpu_torch.ops.ntt.launches",
-                     "ps_inner": "apsu_tpu_torch.ops.polyeval.launches",
-                     "eval_dot": "apsu_tpu_torch.ops.polyeval.dot_launches"}
-
-
 def recorded_launches(recs: list) -> dict:
     """The launches that ``recording_kernels`` saw in ``recs`` (one
     ``kernel_calls`` dict a process): its recorded calls plus what its
     program replays launched, by kernel."""
-    return {k: sum(len(rec[k]) + rec["replayed"].get(c, 0) for rec in recs)
-            for k, c in RECORDED_COUNTERS.items()}
+    return {k: sum(len(rec[k]) + rec["replayed"].get(k, 0) for rec in recs)
+            for k in ("ntt", "ps_inner", "eval_dot")}
 
 
-def all_launches() -> dict:
-    """Every protocol kernel's launch count, by the name in the ``kernels`` line."""
-    from apsu_tpu_torch.ops import ntt as ntt_op
-    from apsu_tpu_torch.ops import polyeval
+def counters() -> list:
+    """Each launch counter of ``ops/counts.COUNTERS``, in its order, as
+    (module, counter, name, kernel): ``kernel`` the first ``__global__``
+    function of its pattern (which gives the name's length, then the name),
+    ``name`` that less ``_kernel`` as the ``kernels`` and ``glue_check``
+    lines print it, with ``_general`` for a general build's counter."""
+    from apsu_tpu_torch.ops import counts
 
-    return {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches,
-            "ps_inner": polyeval.launches, **glue_launches()}
+    out = []
+    for mod, counter, pattern in counts.COUNTERS:
+        digits = re.match(r"\d+", pattern)[0]
+        kernel = pattern[len(digits): len(digits) + int(digits)]
+        name = kernel.removesuffix("_kernel") + ("_general" if "general" in counter else "")
+        out.append((mod, counter, name, kernel))
+    return out
+
+
+def launch_counts() -> dict:
+    """Every counter's launches since it was last reset, by ``counters``' name."""
+    return {name: getattr(mod, counter) for mod, counter, name, _ in counters()}
 
 
 def reset_launches() -> None:
-    from apsu_tpu_torch.ops import ntt as ntt_op
-    from apsu_tpu_torch.ops import polyeval
-
-    ntt_op.launches = polyeval.launches = polyeval.dot_launches = 0
-    reset_glue_launches()
+    """Every counter of ``ops/counts.COUNTERS`` set to 0."""
+    for mod, counter, *_ in counters():
+        setattr(mod, counter, 0)
 
 
 def query_runs(recv, req, calls, timings=None):
@@ -744,67 +700,41 @@ def query_runs(recv, req, calls, timings=None):
 
     reset_launches()
     run("cold")
-    after_cold = all_launches()
+    after_cold = launch_counts()
     for _ in range(WARM):
         run("graph")
-    per_query = {k: (v - after_cold[k]) / WARM for k, v in all_launches().items()}
+    per_query = {k: (v - after_cold[k]) / WARM for k, v in launch_counts().items()}
     with recording_kernels(calls), programs.eager():
         run("eager")
     if timings is not None:
         run("graph", timings=timings)
-    return runs, all_launches(), per_query
+    return runs, launch_counts(), per_query
 
 
-# the glue kernels: (name in the kernels line, source, the reference's code it
-# stands for, its launch counter in ops/behz.py, its CUDA wrappers)
+# the glue kernels: (name in the kernels line, as ``counters`` names its
+# launch counter, source, the reference's code it stands for, its CUDA wrappers)
 GLUE_KERNELS = (
     ("behz_lift", "apsu_tpu_torch/csrc/behz_lift.cu",
      "apsu_tpu/core/bfv.py:753, :909-912; apsu_tpu/core/rns.py:165 (jitted XLA, no Pallas)",
-     "lift_launches", ("scale_cuda", "lift_cuda", "digits_cuda")),
+     ("scale_cuda", "lift_cuda", "digits_cuda")),
     ("mont_mac", "apsu_tpu_torch/csrc/mont_mac.cu",
      "apsu_tpu/core/bfv.py:63, :776-785, :914-922 (jitted XLA, no Pallas)",
-     "mac_launches", ("mont_mac_cuda", "keyswitch_mac_cuda")),
+     ("mont_mac_cuda", "keyswitch_mac_cuda")),
     ("behz_scaledown", "apsu_tpu_torch/csrc/behz_scaledown.cu",
      "apsu_tpu/core/bfv.py:787-793; apsu_tpu/core/rns.py:129, :245 (jitted XLA, no Pallas)",
-     "scaledown_launches", ("scaledown_cuda",)),
+     ("scaledown_cuda",)),
     ("rns_divround", "apsu_tpu_torch/csrc/rns_divround.cu",
      "apsu_tpu/core/bfv.py:923-926, :931-945; apsu_tpu/core/rns.py:295 (jitted XLA, no Pallas)",
-     "divround_launches", ("keyswitch_div_cuda", "mod_switch_cuda")),
+     ("keyswitch_div_cuda", "mod_switch_cuda")),
     ("scale_add", "apsu_tpu_torch/csrc/scale_add.cu",
      "apsu_tpu/core/bfv.py:646; apsu_tpu/engine/evaluator.py:941-972 (jitted XLA, no Pallas)",
-     "scale_add_launches", ("delta_cuda", "delta_add_cuda", "add_into_cuda")),
+     ("delta_cuda", "delta_add_cuda", "add_into_cuda")),
 )
+GLUE_NAMES = tuple(name for name, *_ in GLUE_KERNELS)
 GLUE_WRAPPERS = tuple(w for *_, ws in GLUE_KERNELS for w in ws)
-
-
-# G3's and G1's lift's launches on their general builds (ops/behz.py), which
-# no protocol path takes: each glue_check line reads them and raises if not 0
-GENERAL_COUNTERS = {"behz_lift": "lift_general_launches",
-                    "behz_scaledown": "scaledown_general_launches"}
 # the registers and spilled bytes of each build of G3 and the lift, from the
 # package build's ptxas report (phase 1, ``glue_builds``)
 GLUE_BUILDS: dict = {}
-
-
-def glue_launches() -> dict:
-    """G1-G5's launch counts, by kernel name."""
-    from apsu_tpu_torch.ops import behz
-
-    return {name: getattr(behz, counter) for name, _, _, counter, _ in GLUE_KERNELS}
-
-
-def general_launches() -> dict:
-    """G3's and the lift's launches on their general builds, by kernel name."""
-    from apsu_tpu_torch.ops import behz
-
-    return {name: getattr(behz, counter) for name, counter in GENERAL_COUNTERS.items()}
-
-
-def reset_glue_launches() -> None:
-    from apsu_tpu_torch.ops import behz
-
-    for counter in [c for _, _, _, c, _ in GLUE_KERNELS] + list(GENERAL_COUNTERS.values()):
-        setattr(behz, counter, 0)
 
 
 def glue_builds(log: str) -> dict:
@@ -916,14 +846,15 @@ def check_glue_calls(calls, label, ceilings) -> dict:
     from apsu_tpu_torch.ops import behz
     from apsu_tpu_torch.tools import cuda_ms, graph_ms
 
-    general = general_launches()
+    general = {name.removesuffix("_general"): n for name, n in launch_counts().items()
+               if name.endswith("_general")}
     if any(general.values()):
         raise AssertionError(f"a general build launched ({label}): {general}")
     by_kernel = {name: {"launches": 0, "max_abs_err": 0, "device_ms_per_query": 0.0,
                         "bound_ms_per_query": 0.0, "ceiling_ms_per_query": 0.0,
                         "by_wrapper": {}, "ms_by_wrapper": {}, "builds": {},
                         "general_launches": general.get(name, 0), "distinct": {}}
-                 for name, *_ in GLUE_KERNELS}
+                 for name in GLUE_NAMES}
     kernel_of = {w: name for name, *_, ws in GLUE_KERNELS for w in ws}
     def fresh(args):   # G5 writes into its first operand: each run gets its own
         return [strided_copy(a) if isinstance(a, torch.Tensor) else a for a in args]
@@ -979,111 +910,6 @@ def check_glue_calls(calls, label, ceilings) -> dict:
         out[name] = k
     emit({"glue_check": label, **out})
     return out
-
-
-_GLUE_VARIANTS: list = []   # compare_glue's builds, made once a process
-
-
-def glue_sass(lib) -> dict:
-    """Static SASS of the G3 and lift builds that take 16M-4096's largest
-    calls ((Lq, Lb) = (6, 9) and (4, 7); the first design's SMALL_Q build)
-    in a library: all instructions, IMAD.WIDE and IMAD.HI, by kernel."""
-    out = {}
-    for f in sass_functions(lib, r"(scaledown|lift)\w*I(Li0E)?Li(6ELi9|4ELi7|8ELi12)E"):
-        ops = re.findall(r"^\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)",
-                         f, re.M)
-        out[f.split("\n", 1)[0].strip()] = {
-            "instructions": len(ops), "imad_wide": sum(o.startswith("IMAD.WIDE") for o in ops),
-            "imad_hi": sum(o.startswith("IMAD.HI") for o in ops)}
-    return out
-
-
-def compare_glue(sources, calls, label) -> None:
-    """Each given glue source (a variant exporting one or more of G1-G4's C
-    entries, ``csrc/compare/glue_*.cu``), built alone (once, at the first
-    call), against the package's kernels at every G call recorded in
-    ``calls`` (a warm query's, ``label``) to a kernel it exports: equal
-    outputs, then each kernel's per-query device time (each distinct call
-    graph-replayed, times its count) and its largest call's, read in turns
-    with the package's build (A, B, B, A, five trials; ``turns_summary``)."""
-    import ctypes
-
-    from apsu_tpu_torch.ops import _build, behz
-    from apsu_tpu_torch.tools import graph_ms
-
-    entries = {name: "apsu_" + name for name, *_ in GLUE_KERNELS}
-    kernel_of = {w: name for name, *_, ws in GLUE_KERNELS for w in ws}
-    real_lib, package_lib = _build.lib(), _build.lib
-    distinct = {}
-    for wrapper, args in calls:
-        key = (wrapper,) + tuple((tuple(a.shape), tuple(a.stride())) if isinstance(a, torch.Tensor)
-                                 else id(a) for a in args)
-        distinct.setdefault(key, [wrapper, args, 0])[2] += 1
-
-    class Lib:   # the package's library with some entries taken from a variant
-        def __init__(self, over):
-            self.over = over
-
-        def __getattr__(self, entry):
-            return self.over.get(entry) or getattr(real_lib, entry)
-
-    if not _GLUE_VARIANTS:
-        emit({"compare_glue_build": "package", "builds": GLUE_BUILDS,
-              "sass": glue_sass(_build.build())})
-        for src, so_path, log in build_alone(sources, "glue"):
-            so = ctypes.CDLL(str(so_path))
-            over = {}
-            for entry in entries.values():
-                if hasattr(so, entry):
-                    f = getattr(so, entry)
-                    f.argtypes, f.restype = getattr(real_lib, entry).argtypes, ctypes.c_int
-                    over[entry] = f
-            emit({"compare_glue_build": str(src), **ptxas_stats(log),
-                  "builds": glue_builds(log), "sass": glue_sass(so_path),
-                  "entries": sorted(over)})
-            _GLUE_VARIANTS.append((src, over))
-    for src, over in _GLUE_VARIANTS:
-        variant = Lib(over)
-
-        def on(lib, fn):
-            def run():
-                _build.lib = lambda: lib
-                try:
-                    return fn()
-                finally:
-                    _build.lib = package_lib
-            return run
-
-        for name, entry in entries.items():
-            if entry not in over:
-                continue
-            mine = [(w, a, c) for w, a, c in distinct.values() if kernel_of[w] == name]
-            for wrapper, args, _ in mine:
-                fn = getattr(behz, wrapper)
-                got, want = on(variant, lambda: fn(*args))(), fn(*args)
-                for g, w in zip(got if isinstance(got, tuple) else (got,),
-                                want if isinstance(want, tuple) else (want,)):
-                    if (g is None) != (w is None) or (g is not None and not torch.equal(g, w)):
-                        raise AssertionError(f"{wrapper} from {src} != the package's")
-            big = max(mine, key=lambda m: glue_work(m[0], m[1], getattr(behz, m[0])(*m[1]))[0])
-
-            def per_query(lib):
-                return lambda: sum(on(lib, lambda: graph_ms(lambda: getattr(behz, w)(*a)))() * c
-                                   for w, a, c in mine)
-
-            def largest(lib):
-                return on(lib, lambda: graph_ms(lambda: getattr(behz, big[0])(*big[1])))
-
-            own = "package"
-            emit({"compare_glue": name, "query": label, "source": str(src),
-                  "distinct_calls": len(mine),
-                  "calls": sum(c for *_, c in mine), "largest_wrapper": big[0],
-                  "largest_shapes": [list(a.shape) for a in big[1]
-                                     if isinstance(a, torch.Tensor)],
-                  "per_query_ms": turns_summary(in_turns(
-                      {own: per_query(real_lib), str(src): per_query(variant)}, trials=5), own),
-                  "largest_ms": turns_summary(in_turns(
-                      {own: largest(real_lib), str(src): largest(variant)}, trials=5), own)})
 
 
 def cli_child(out: str, module: str, argv: list) -> int:
@@ -1162,15 +988,13 @@ PROFILE_FUNCTIONS = ("_ps_rows", "_run_schedule", "eval_matching_polys")
 # preparation of a query (validation, the mask drawn on the host, the upload)
 PROFILE_PROGRAMS = ("power_tensor", "ps_power_tensors", "matching", "matching_labeled",
                     "ps_matching")
-# the hand-written kernels by the name of their __global__ function
-KERNEL_NAMES = ("ntt_kernel", "ps_inner_kernel", "eval_dot_kernel", "behz_lift_kernel",
-                "mont_mac_kernel", "behz_scaledown_kernel", "rns_divround_kernel",
-                "scale_add_kernel")
-# the launch counter (ops/counts.py) of each, by its name in KERNEL_NAMES
-TRACED_COUNTERS = dict(zip(KERNEL_NAMES, (
-    "ntt.launches", "polyeval.launches", "polyeval.dot_launches", "behz.lift_launches",
-    "behz.mac_launches", "behz.scaledown_launches", "behz.divround_launches",
-    "behz.scale_add_launches")))
+
+
+def traced_names() -> list:
+    """The hand-written kernels by their ``__global__`` function (``counters``),
+    each once: a kernel ``torch.profiler`` traced on the device is one whose
+    demangled name holds it."""
+    return list(dict.fromkeys(kernel for *_, kernel in counters()))
 
 
 @contextlib.contextmanager
@@ -1241,7 +1065,7 @@ def profile_query(recv, req) -> dict:
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:15]
     ours = {k: {"device_ms": sum(e.self_device_time_total for e in events if k in e.key) / 1e3,
                 "count": sum(e.count for e in events if k in e.key)}
-            for k in KERNEL_NAMES}
+            for k in traced_names()}
     hand_ms = sum(v["device_ms"] for v in ours.values())
     res = {"profile_wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_idle_share": 1 - busy_ms / wall_ms, "hand_written_kernels": ours,
@@ -1274,113 +1098,11 @@ def ps_query(params, bfv, roots, rng, query_lvl):
     return qvec, sk, req
 
 
-def profile_turns(other: Path) -> int:
-    """``--profile-turns ROOT``: ``profile_child`` in this checkout and in
-    checkout ROOT, each in a process of its own, in turns (this, ROOT, ROOT,
-    this): every reading, then for each checkout and path the best warm
-    query, the profiled query's busy and idle share, and its device time in
-    the hand-written protocol kernels, in G1-G5 and in plain PyTorch ops."""
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
-        return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    print(smi, flush=True)
-    turns = checkouts_in_turns([other], lambda root: [str(ROOT / "chip_smoke.py"),
-                                                      "--profile-child", str(root)])
-    glue = {name + "_kernel" for name, *_ in GLUE_KERNELS}
-    summary = {}
-    for root, readings in turns.items():
-        summary[root] = {"build_s": [r.get("build_s") for r in readings]}
-        for path in ("16M-4096", "1M-2048-cmp"):
-            runs = [r[path] for r in readings]
-            profs = [r["profile"] for r in runs]
-            kern = [p["hand_written_kernels"] for p in profs]
-            summary.setdefault(root, {})[path] = {
-                "warm_best_s": [r["warm_best_s"] for r in runs],
-                "checksums": [r["checksums"] for r in runs],
-                "device_busy_ms": [p["device_busy_ms"] for p in profs],
-                "device_idle_share": [p["device_idle_share"] for p in profs],
-                "kernels_launched": [p["kernels_launched"] for p in profs],
-                "protocol_kernels_ms": [sum(v["device_ms"] for k, v in d.items() if k not in glue)
-                                        for d in kern],
-                "glue_kernels_ms": [sum(v["device_ms"] for k, v in d.items() if k in glue)
-                                    for d in kern],
-                "plain_ops_ms": [p["plain_device_ms"] for p in profs]}
-    emit({"profile_turns": turns})
-    emit({"gpu": smi, "profile_turns_summary": summary})
-    return 0
-
-
-def profile_child(seed: int) -> dict:
-    """``--profile-child ROOT``: with the package of checkout ROOT, the warm
-    16M-4096 query (dense DB, B=4, C=CACHES) and the warm 1M-2048-cmp query
-    (2^20 items through ``set_data``, a 2048-item sender), each WARM times
-    then once under ``profile_query``; the result checksums of every query,
-    and the seconds of the package's kernel build when this process made it."""
-    from apsu_tpu_torch.api.parties import Receiver, Sender
-    from apsu_tpu_torch.core.params import PSUParams
-    from apsu_tpu_torch.db.measured_levels import query_level
-    from apsu_tpu_torch.db.receiver_db import ReceiverDB
-    from apsu_tpu_torch.mpc.oprf import DebugOprf
-
-    def warm(recv, req):
-        out = []
-        for _ in range(WARM + 1):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            resp = recv.run_query(req)
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0, int(resp.results.to(torch.int64).sum())))
-        prof = profile_query(recv, req)
-        return {"first_query_s": out[0][0], "warm_query_s": [s for s, _ in out[1:]],
-                "warm_best_s": min(s for s, _ in out[1:]), "checksums": [c for _, c in out],
-                "profile": prof}
-
-    res = {}
-    params = PSUParams.load_file(str(ROOT / "parameters" / "16M-4096.json"))
-    rng = np.random.default_rng(seed)
-    db = ReceiverDB(params, device="cuda")
-    ql = query_level(params, len(db.bfv.q_primes))
-    _, _, req = ps_query(params, db.bfv, db.set_synthetic_dense(rng, n_caches=CACHES), rng, ql)
-    res["16M-4096"] = warm(Receiver(params, db, rng=np.random.default_rng(seed + 1)), req)
-    del db, req
-    torch.cuda.empty_cache()
-
-    params = PSUParams.load_file(str(ROOT / "parameters" / "1M-2048-cmp.json"))
-    rng = np.random.default_rng(seed)
-    db_items, query = make_sets(rng, DB_ITEMS, QUERY_ITEMS, COMMON_ITEMS)
-    db = ReceiverDB(params, DebugOprf(), device="cuda")
-    db.set_data(db_items)
-    snd = Sender(params, DebugOprf(), rng=np.random.default_rng(seed + 2), device="cuda")
-    req = snd.create_query(query)
-    res["1M-2048-cmp"] = warm(Receiver(params, db, rng=np.random.default_rng(seed + 3)), req)
-    from apsu_tpu_torch.ops import _build
-
-    res["build_s"] = _build.build_seconds
-    return res
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace one warm query with torch.profiler")
-    ap.add_argument("--compare-ntt", nargs="+", type=Path, default=[], metavar="SRC",
-                    help="other ntt.cu sources to check and time in turns with csrc/ntt.cu")
-    ap.add_argument("--compare-ps-inner", nargs="+", type=Path, default=[], metavar="SRC",
-                    help="other ps_inner.cu sources to check and time in turns with "
-                         "csrc/ps_inner.cu")
-    ap.add_argument("--compare-eval-dot", nargs="+", type=Path, default=[], metavar="SRC",
-                    help="other eval_dot.cu sources to check and time in turns with "
-                         "csrc/eval_dot.cu")
-    ap.add_argument("--compare-roofline", nargs="+", type=Path, default=[], metavar="SRC",
-                    help="other K9/K10 sources (csrc/compare/*.cu) or checkout roots to "
-                         "check and time in turns with csrc/roofline.cu and this launch path")
-    ap.add_argument("--compare-glue", nargs="+", type=Path, default=[], metavar="SRC",
-                    help="other G1-G4 sources (csrc/compare/glue_*.cu) to check and time in "
-                         "turns with the package's at the 16M-4096 and 1M-2048-cmp warm "
-                         "queries' G calls")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1497,7 +1219,7 @@ def main() -> int:
     # keeps its response and its mask
     timings = {}
     runs, launches, per_query = query_runs(recv, req, calls, timings)
-    launches = {k: launches[k] for k in ("ntt", "ps_inner", *glue_launches())}
+    launches = {k: launches[k] for k in ("ntt", "ps_inner", *GLUE_NAMES)}
     oracles = [oracle(resp, mask) for resp, mask, *_ in runs]
     # control: the recorded response against the split query's mask
     control = oracle(runs[-2][0], runs[-1][1])
@@ -1523,8 +1245,6 @@ def main() -> int:
     ntt_ps = check_ntt_shapes(calls["ntt"], gen)
     emit({"ntt_warm_query": ntt_ps})
     glue_ps = check_glue_calls(calls["glue"], "16M-4096 warm query", ceil["ceilings"])
-    if args.compare_glue:
-        compare_glue(args.compare_glue, calls["glue"], "16M-4096 warm query")
     calls["glue"].clear()
 
     low = rand_residues((B, ph - 1, 2, q.k, N), q.primes, gen)
@@ -1553,7 +1273,7 @@ def main() -> int:
 
     # -- phase 6: the in-process PSU at 1M-2048-cmp (and phase 12 on its DB) --
     psu = psu_path(args, gen, "1M-2048-cmp", ceil["ceilings"], sharded=True)
-    if not all(psu["launches"][name] for name, *_ in GLUE_KERNELS):
+    if not all(psu["launches"][name] for name in GLUE_NAMES):
         raise AssertionError(f"a glue kernel never launched at 1M-2048-cmp: {psu['launches']}")
     torch.cuda.empty_cache()
 
@@ -1595,18 +1315,6 @@ def main() -> int:
                   f"labeled_{LABELED_SET}": lab["programs"], SMALL_QUERY_SET: psu256["programs"]})
     emit({"programs_summary": {path: {k: r[k] for k in PROGRAM_SUMMARY} for path, r in progs.items()},
           "gpu": GPU})
-    if args.compare_ntt:
-        torch.cuda.empty_cache()
-        compare_ntt(args.compare_ntt, gen)
-    if args.compare_ps_inner:
-        torch.cuda.empty_cache()
-        compare_ps_inner(args.compare_ps_inner, gen)
-    if args.compare_eval_dot:
-        torch.cuda.empty_cache()
-        compare_eval_dot(args.compare_eval_dot, gen, ceil["ceilings"])
-    if args.compare_roofline:
-        torch.cuda.empty_cache()
-        compare_roofline(args.compare_roofline)
 
     ntt_keys = ("largest_shape", "largest_inverse", "largest_ms", "largest_plain_ms",
                 "largest_bound_ms", "largest_bound_by", "device_ms_per_query",
@@ -1617,6 +1325,12 @@ def main() -> int:
     def ceiling_keys(work, product):
         t, by = ceiling_ms(work, ceil["ceilings"], product)
         return {"ceiling_ms": t, "ceiling_by": by, "ceiling_product": product}
+
+    def mul_wide_keys(work):
+        """K2's or K3's ceiling from the yardstick's work (bytes, 32-bit
+        multiplies): each product a 32x32->64 widening multiply, 2 of them."""
+        nbytes, mults = work
+        return ceiling_keys((nbytes, mults // 2, mults), "mul_wide")
 
     def ntt_summary(summary, keys=ntt_keys):
         """An NTT summary's keys and its per-query ceiling (Shoup products)."""
@@ -1687,10 +1401,10 @@ def main() -> int:
          "tolerance": TOLERANCE,
          "ms": ps["ms"], "plain_ms": ps["plain_ms"],
          "bound_ms": ps["bound_ms"], "bound_by": ps["bound_by"],
-         **ceiling_keys(ps_work(ps["low"], ps["cache5"]), "mul_wide"), "library_ms": None,
+         **mul_wide_keys(yardstick.ps_work(ps["low"], ps["cache5"])), "library_ms": None,
          "shape": {"low": ps["low"], "cache5": ps["cache5"]},
          "other_cases": [{**{k: d[k] for k in ps_keys},
-                          **ceiling_keys(ps_work(d["low"], d["cache5"]), "mul_wide")}
+                          **mul_wide_keys(yardstick.ps_work(d["low"], d["cache5"]))}
                          for d in [psu_ps["ps_inner"]] + ps_checks + cli["ps_inner"]
                          + life["ps_inner"] + shard16["ps_inner"] + grid["ps_inner"]]},
         {"name": "eval_dot", "route": "cuda", "source": "apsu_tpu_torch/csrc/eval_dot.cu",
@@ -1710,13 +1424,13 @@ def main() -> int:
          "tolerance": TOLERANCE,
          "ms": psu["eval_dot"]["ms"], "plain_ms": psu["eval_dot"]["plain_ms"],
          "bound_ms": psu["eval_dot"]["bound_ms"], "bound_by": psu["eval_dot"]["bound_by"],
-         **ceiling_keys(dot_work(psu["eval_dot"]["powers"], psu["eval_dot"]["cache"]),
-                        "mul_wide"),
+         **mul_wide_keys(yardstick.dot_work(psu["eval_dot"]["powers"],
+                                            psu["eval_dot"]["cache"])),
          "library_ms": None,
          "shape": {"powers": psu["eval_dot"]["powers"], "cache": psu["eval_dot"]["cache"]},
          "other_cases": [{**{k: d[k] for k in ("case", "powers", "cache", "primes_bits", "ms",
                                                "plain_ms", "bound_ms")},
-                          **ceiling_keys(dot_work(d["powers"], d["cache"]), "mul_wide")}
+                          **mul_wide_keys(yardstick.dot_work(d["powers"], d["cache"]))}
                          for d in dot_checks + [mpc["eval_dot"]] + lab["eval_dot"]
                          + psu["sharded"]["eval_dot"] + [psu256["eval_dot"]]],
          "labeled_launches_per_query": lab["launches_per_query"]["eval_dot"]},
@@ -1881,7 +1595,6 @@ def ceilings_phase() -> dict:
     ``torch.add``'s streams, and each product's rate from one launch of 256
     rounds."""
     from apsu_tpu_torch.core.mod32 import from_u32
-    from apsu_tpu_torch.ops import ntt as ntt_op
     from apsu_tpu_torch.ops import roofline
     from apsu_tpu_torch.tools import graph_ms, ntt4p_gl_ab, vpu_roofline, window_ms
 
@@ -1953,12 +1666,12 @@ def ceilings_phase() -> dict:
                                 "--format=csv,noheader,nounits", "-lms", "100"],
                                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
         try:
-            roofline.loop_launches = roofline.add_launches = ntt_op.launches = 0
+            reset_launches()
             t0 = time.perf_counter()
             runs[name] = measure()
-            launches[name] = {"vpu_loop": roofline.loop_launches,
-                              "add_one": roofline.add_launches, "ntt": ntt_op.launches,
-                              "wall_s": time.perf_counter() - t0}
+            counted = launch_counts()
+            launches[name] = {"vpu_loop": counted["vpu_loop"], "add_one": counted["add_one"],
+                              "ntt": counted["ntt"], "wall_s": time.perf_counter() - t0}
         finally:
             smi.terminate()
             samples, _ = smi.communicate(timeout=30)
@@ -1995,9 +1708,10 @@ def ceilings_phase() -> dict:
         "min_per_step": vpu_roofline.MIN_PER_STEP,
         "arm_share_of_bound": {a["arm"]: a["share_of_bound"] for a in roof["arms"]},
         "share_of_published": {
-            "add_one_stream": s["bytes_per_s"] / HBM_BYTES_PER_S,
-            "torch_add_stream": s["torch_add_bytes_per_s"] / HBM_BYTES_PER_S,
-            **{a["arm"]: a["busiest_pipe_ops_per_s"] / INT32_OPS_PER_S for a in roof["arms"]}},
+            "add_one_stream": s["bytes_per_s"] / yardstick.HBM_BYTES_PER_S,
+            "torch_add_stream": s["torch_add_bytes_per_s"] / yardstick.HBM_BYTES_PER_S,
+            **{a["arm"]: a["busiest_pipe_ops_per_s"] / yardstick.INT32_OPS_PER_S
+               for a in roof["arms"]}},
         "per_call_floor_ms": [{k: row[k] for k in ("L", "B", "add_one_graph_ms", "add_one_eager_ms",
                                                     "torch_add_eager_ms", "l2_resident")}
                               for row in gl["rows"]],
@@ -2022,38 +1736,11 @@ def ceilings_phase() -> dict:
            "launches_by_path": {k: v["add_one"] for k, v in launches.items()},
            "max_abs_err": max(c["max_abs_err"] for c in add_cases.values()),
            "tolerance": TOLERANCE, "ms": s["ms"] / s["launches_a_window"],
-           "plain_ms": add_plain_ms, "bound_ms": stream_bytes / HBM_BYTES_PER_S * 1e3,
+           "plain_ms": add_plain_ms, "bound_ms": stream_bytes / yardstick.HBM_BYTES_PER_S * 1e3,
            "bound_by": "bytes", "library_ms": s["torch_add_ms"] / s["launches_a_window"],
            "shape": [s["elems"]]}
     return {"kernels": [k9, k10], "ceilings": ceilings,
             "ntt_launches": launches["ntt4p_gl_ab"]["ntt"]}
-
-
-def build_alone(sources, tag: str):
-    """Each given CUDA source compiled alone (all ``nvcc`` at once) into its
-    own shared library; yields (source, library path, nvcc's log)."""
-    from apsu_tpu_torch.ops import _build
-
-    procs = []
-    for i, src in enumerate(sources):
-        lib = _build.BUILD_ROOT / f"compare_{tag}" / f"{i}" / "lib.so"
-        lib.parent.mkdir(parents=True, exist_ok=True)
-        cmd = [_build._nvcc(), *_build.ARCH_FLAGS, *_build.CFLAGS, "-shared", str(src),
-               "-o", str(lib)]
-        procs.append((src, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                 stderr=subprocess.STDOUT, text=True)))
-    for src, lib, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
-        yield src, lib, log
-
-
-def ptxas_stats(log: str) -> dict:
-    """The most registers and the spilled bytes of the kernels in a
-    ``-Xptxas -v`` log."""
-    return {"max_registers": max(int(r) for r in re.findall(r"Used (\d+) registers", log)),
-            "spill_bytes": sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))}
 
 
 def sass_functions(lib, pattern: str) -> list:
@@ -2064,541 +1751,6 @@ def sass_functions(lib, pattern: str) -> list:
                           capture_output=True, text=True, check=True).stdout
     return [f for f in re.split(r"\n\s*Function : ", dump)[1:]
             if re.search(pattern, f.split("\n", 1)[0])]
-
-
-def compare_ntt(sources, gen) -> None:
-    """Each given NTT source (an earlier commit's ``ntt.cu`` or a variant
-    with the same C entry point ``apsu_ntt``), built alone, against
-    ``ntt_plain``, then timed in turns (A, B, ..., B, A) with the package's
-    kernel at the largest NTT shape of the 16M-4096 query (its key base) and
-    of the 1M-2048-cmp query (its eval base), forward and inverse."""
-    import ctypes
-
-    from apsu_tpu_torch.core.params import PSUParams
-    from apsu_tpu_torch.db.measured_levels import query_level
-    from apsu_tpu_torch.db.receiver_db import ReceiverDB
-    from apsu_tpu_torch.ops import _build
-    from apsu_tpu_torch.ops import ntt as ntt_op
-    from apsu_tpu_torch.tools import graph_ms
-
-    def launcher(so, name):
-        def run(x, tb, inverse, out):
-            tw, tw_sh = (tb.winv_pl_u32, tb.winv_sh_u32) if inverse else (tb.w_pl_u32, tb.w_sh_u32)
-            _build.check(so.apsu_ntt(
-                x.data_ptr(), out.data_ptr(), tw.data_ptr(), tw_sh.data_ptr(),
-                tb.p_u32.data_ptr(), tb.ninv_pl_u32.data_ptr(), tb.ninv_sh_u32.data_ptr(),
-                x.numel() // tb.n, tb.L, tb.logn, int(inverse),
-                _build.stream_ptr(x.device)), f"ntt ({name})")
-        return run
-
-    def sass_fwd_8192(lib):
-        """Static SASS instructions of the forward N=8192 kernel, if the
-        source instantiates one per N (fully unrolled, so what a thread runs)."""
-        for f in sass_functions(lib, r"ntt_kernelILi13E(?:Li\d+E)?Lb0E"):
-            return len(re.findall(r"^\s+/\*[0-9a-f]{4}\*/\s+[A-Z@]", f, re.M))
-        return None
-
-    builds = {"csrc/ntt.cu": launcher(_build.lib(), "csrc/ntt.cu")}
-    emit({"compare_ntt_build": "csrc/ntt.cu", "sass_fwd_8192": sass_fwd_8192(_build.build())})
-    for src, lib, log in build_alone(sources, "ntt"):
-        emit({"compare_ntt_build": str(src), "sass_fwd_8192": sass_fwd_8192(lib),
-              **ptxas_stats(log)})
-        so = ctypes.CDLL(str(lib))
-        so.apsu_ntt.argtypes = _build.lib().apsu_ntt.argtypes
-        so.apsu_ntt.restype = ctypes.c_int
-        builds[str(src)] = launcher(so, src)
-
-    ps = PSUParams.load_file(str(ROOT / "parameters" / "16M-4096.json"))
-    bfv = ReceiverDB(ps, device="cuda").bfv
-    key = bfv._qp_level(query_level(ps, len(bfv.q_primes)))
-    cmp_db = ReceiverDB(PSUParams.load_file(str(ROOT / "parameters" / "1M-2048-cmp.json")),
-                        device="cuda")
-    ev = cmp_db.bfv.levels[cmp_db.eval_level()]
-    for base, shape in [(key, (4, 6, 28, 2, key.k, 8192)), (ev, (72, 5, 2, ev.k, 4096))]:
-        tb = base.ntt
-        x = rand_residues(shape, tb.primes, gen)
-        out = torch.empty_like(x)
-        for inverse in (False, True):
-            want = ntt_op.ntt_plain(x, tb, inverse)
-            for name, run in builds.items():
-                out.zero_()
-                run(x, tb, inverse, out)
-                if not torch.equal(out, want):
-                    raise AssertionError(f"NTT {name} != plain at {shape} inverse={inverse}")
-            del want
-            turns = in_turns({name: (lambda r=run: graph_ms(lambda: r(x, tb, inverse, out)))
-                              for name, run in builds.items()})
-            emit({"compare_ntt": list(shape), "inverse": inverse,
-                  "bound_ms": ntt_bound_ms(shape, tb.L, tb.n, inverse)[0],
-                  "ms": {name: sum(t) / len(t) for name, t in turns.items()}})
-        del x, out
-
-
-def compare_ps_inner(sources, gen) -> None:
-    """Each given PS inner-sum source (an earlier commit's ``ps_inner.cu`` or
-    a variant with the same C entry point ``apsu_ps_inner``), built alone,
-    against ``ps_inner_plain`` at K2's four shapes (``PS_CASES``: the
-    1M-2048-com warm query's and the 16M-4096 main path's strided views,
-    1M-4096-com's 30-bit primes at ph=9, ph=311 on 256M-1's primes), then
-    timed in turns (A, B, ..., B, A) with the package's kernel.  Each build
-    also reports its registers, spills and the CALL instructions in its
-    kernels' SASS (a 64-bit division compiles to a call)."""
-    import ctypes
-
-    from apsu_tpu_torch.ops import _build, polyeval
-    from apsu_tpu_torch.tools import graph_ms
-
-    def launcher(so, name):
-        def run(low, cache5, q, C, out):
-            R, nseg, ph, L, N = cache5.shape
-            _build.check(so.apsu_ps_inner(
-                low.data_ptr(), cache5.data_ptr(), out.data_ptr(), q.p_u32.data_ptr(),
-                q.pni_u32.data_ptr(), cache5.stride(0), R, C, nseg, ph, L, N,
-                _build.stream_ptr(low.device)), f"ps_inner ({name})")
-        return run
-
-    own = "csrc/ps_inner.cu"
-    builds = {own: launcher(_build.lib(), own)}
-    for src, lib, log in build_alone([_build.CSRC / "ps_inner.cu", *sources], "ps_inner"):
-        calls = sum(len(re.findall(r"^\s+/\*[0-9a-f]{4}\*/\s+CALL", f, re.M))
-                    for f in sass_functions(lib, "ps_inner_kernel"))
-        name = own if src == _build.CSRC / "ps_inner.cu" else str(src)
-        emit({"compare_ps_inner_build": name, **ptxas_stats(log), "sass_calls": calls})
-        if name != own:
-            so = ctypes.CDLL(str(lib))
-            so.apsu_ps_inner.argtypes = _build.lib().apsu_ps_inner.argtypes
-            so.apsu_ps_inner.restype = ctypes.c_int
-            builds[name] = launcher(so, name)
-
-    for case in PS_CASES:
-        label, low, cache5, q = ps_inner_case(case, gen)
-        C = cache5.shape[0] // low.shape[0]
-        want = polyeval.ps_inner_plain(low, cache5, q, C)
-        out = torch.empty_like(want)
-        for name, run in builds.items():
-            out.zero_()
-            run(low, cache5, q, C, out)
-            if not torch.equal(out, want):
-                raise AssertionError(f"PS inner sums {name} != plain at {label}")
-        del want
-        turns = in_turns({name: (lambda r=run: graph_ms(lambda: r(low, cache5, q, C, out)))
-                          for name, run in builds.items()})
-        emit({"compare_ps_inner": label, "low": list(low.shape), "cache5": list(cache5.shape),
-              "cache5_row_stride": cache5.stride(0), "plan": ps_plan(cache5, C),
-              "bound_ms": ps_bound_ms(tuple(low.shape), tuple(cache5.shape))[0],
-              "ms": {name: sum(t) / len(t) for name, t in turns.items()}, "turns_ms": turns})
-        del low, cache5, out
-        torch.cuda.empty_cache()
-
-
-def compare_eval_dot(sources, gen, ceilings) -> None:
-    """Each given dot-product source (an earlier commit's ``eval_dot.cu``, with
-    its C entry ``apsu_eval_dot``, or a variant of this one, with
-    ``apsu_eval_dot_split`` and the plan), built alone, against
-    ``eval_dot_plain`` at K3's shapes (``DOT_CASES``), then timed in turns
-    (A, B, ..., B, A) with the package's kernel.  Each launch of a timing
-    reads its own copy of the inputs, the copies together at least three
-    times the 50 MB L2, so every launch finds them in device memory as a
-    query does.  Each build also reports its registers, spills and the CALL
-    instructions in its kernels' SASS (a 64-bit division compiles to a
-    call)."""
-    import ctypes
-
-    from apsu_tpu_torch.ops import _build, polyeval
-    from apsu_tpu_torch.tools import graph_ms
-
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-
-    def launcher(so, name):
-        split = hasattr(so, "apsu_eval_dot_split")
-        entry = so.apsu_eval_dot_split if split else so.apsu_eval_dot
-        entry.argtypes = [vp] * 5 + [i32] * 6 + ([vp, vp] if split else [vp])
-        entry.restype = i32
-
-        def run(powers, cache, base, out):
-            B, D, _, L, N = powers.shape
-            C, Dp = cache.shape[1], cache.shape[2]
-            args = [powers.data_ptr(), cache.data_ptr(), out.data_ptr(), base.p_u32.data_ptr(),
-                    base.pni_u32.data_ptr(), B, C, D, Dp, L, N]
-            if split:
-                plan = polyeval.card_dot_plan(powers.device.index, B, C, D, L, N)
-                args.append((ctypes.c_int * 8)(*plan.kernel_fields()))
-            _build.check(entry(*args, _build.stream_ptr(powers.device)), f"eval_dot ({name})")
-        return run
-
-    own = "csrc/eval_dot.cu"
-    builds = {own: launcher(_build.lib(), own)}
-    for src, lib, log in build_alone([_build.CSRC / "eval_dot.cu", *sources], "eval_dot"):
-        calls = sum(len(re.findall(r"^\s+/\*[0-9a-f]{4}\*/\s+CALL", f, re.M))
-                    for f in sass_functions(lib, "eval_dot_kernel"))
-        name = own if src == _build.CSRC / "eval_dot.cu" else str(src)
-        emit({"compare_eval_dot_build": name, **ptxas_stats(log), "sass_calls": calls})
-        if name != own:
-            builds[name] = launcher(ctypes.CDLL(str(lib)), name)
-
-    for case in DOT_CASES:
-        label, powers, cache, base = dot_case(case, gen)
-        want = polyeval.eval_dot_plain(powers, cache, base)
-        out = torch.empty_like(want)
-        for name, run in builds.items():
-            out.zero_()
-            run(powers, cache, base, out)
-            if not torch.equal(out, want):
-                raise AssertionError(f"dot product {name} != plain at {label}")
-        del want
-        nbytes = (powers.numel() + cache.numel()) * 4
-        copies = [(powers, cache)] + [(powers.clone(), cache.clone())
-                                      for _ in range(-(-150_000_000 // nbytes) - 1)]
-        turn = [0]
-
-        def cold(run):
-            turn[0] += 1
-            pw, ch = copies[turn[0] % len(copies)]
-            run(pw, ch, base, out)
-
-        turns = in_turns({name: (lambda r=run: graph_ms(lambda: cold(r)))
-                          for name, run in builds.items()})
-        B, D, _, L, N = powers.shape
-        work = dot_work(tuple(powers.shape), tuple(cache.shape))
-        emit({"compare_eval_dot": label, "powers": list(powers.shape),
-              "cache": list(cache.shape), "input_copies": len(copies),
-              "plan": polyeval.card_dot_plan(powers.device.index, B, cache.shape[1], D, L,
-                                             N)._asdict(),
-              "bound_ms": dot_bound_ms(tuple(powers.shape), tuple(cache.shape))[0],
-              "ceiling_ms": ceiling_ms(work, ceilings, "mul_wide")[0] if ceilings else None,
-              "ms": {name: sum(t) / len(t) for name, t in turns.items()}, "turns_ms": turns})
-        del powers, cache, out, copies
-        torch.cuda.empty_cache()
-
-
-# the K9 probes a comparison source may add to apsu_vpu_loop, by op code
-# (csrc/compare/k9_probes.cu): dependent chains of one instruction, to read
-# that instruction's rate
-PROBE_OPS = ("imad_wide_chain", "imad_hi_chain")
-# K10's ragged lengths: around a 4-element vector, a 4096-element tile of the
-# small launch (and of a ring's 16 KB stage), a ragged last tile, and the
-# switch to the large launch's shape at 2^23 elements
-ADD_LENGTHS = (1, 3, 4, 5, 4095, 4096, 4097, 8191, 8192, 8193, 3 * 4096 + 1027,
-               264 * 4096 + 4095, 1 << 20, (1 << 23) - 1, (1 << 23) + 5)
-
-
-def in_turns(runs: dict, trials: int = 1) -> dict:
-    """Each of ``runs`` (name: a callable that returns a reading) read in
-    turns, A, B, ..., B, A, ``trials`` times over, so that a drift of the
-    host's or the card's speed falls on every one alike: each name's
-    readings in order, two a trial."""
-    turns = {name: [] for name in runs}
-    for _ in range(trials):
-        for name in list(runs) + list(runs)[::-1]:
-            turns[name].append(runs[name]())
-    return turns
-
-
-def turns_summary(turns: dict, own: str) -> dict:
-    """``in_turns`` readings with each name's best and mean, and against
-    ``own`` the least and the most of the trials' differences (name - own,
-    each trial's mean of its two readings): a difference is outside the
-    trials' spread only where the two have one sign."""
-    def trials(r):
-        return [(r[i] + r[i + 1]) / 2 for i in range(0, len(r), 2)]
-
-    base = trials(turns[own])
-    diffs = {k: [b - a for a, b in zip(base, trials(r))] for k, r in turns.items() if k != own}
-    return {"readings": turns, "best": {k: min(r) for k, r in turns.items()},
-            "mean": {k: sum(r) / len(r) for k, r in turns.items()},
-            "minus_own": {k: [min(d), max(d)] for k, d in diffs.items()}}
-
-
-def probe_plain(x, op: str, outer: int):
-    """Plain int64 versions of the K9 probes: ``imad_wide_chain`` keeps a
-    64-bit w, a round from (lo, hi) = (acc, x), w = lo(w) * hi(w) a step,
-    and ends acc = lo(w) ^ hi(w); ``imad_hi_chain`` is acc = hi(acc * x) + x."""
-    from apsu_tpu_torch.core.mod32 import MASK32, mul_hi, mul_wide
-    from apsu_tpu_torch.ops.roofline import REPS
-
-    acc = x.to(torch.int64) & MASK32
-    for _ in range(outer):
-        xs = acc
-        if op == "imad_wide_chain":
-            lo, hi = acc, xs
-            for _ in range(REPS):
-                hi, lo = mul_wide(lo, hi)
-            acc = lo ^ hi
-        else:
-            for _ in range(REPS):
-                acc = (mul_hi(acc, xs) + xs) & MASK32
-    return acc.to(torch.int32)
-
-
-def launch_split(reps: int = 2000) -> dict:
-    """Where an eager K10 call's host time goes in the package this process
-    imported: CUDA events around ``reps`` eager calls of each piece of its
-    path, in turns, on 2^16 elements (whose kernel is shorter than any
-    piece), milliseconds a call.  The torch calls among the pieces are what
-    a launch path may spend besides its ctypes entry: a ``Stream`` object,
-    ``torch.cuda.device``, the capture check.  Then K1's host enqueue time a
-    call, microseconds, at the 1M-2048-cmp eval shape (its kernel outlasts
-    the host), through ``ntt`` and through ``_build.launch``.  Last, at each
-    ``ntt4p_gl_ab`` row, eager ``add_one(x)`` and ``torch.add(x, 1)`` in
-    turns, 200 calls a window (the tool itself reads one window each, in
-    that order).  Only calls that every checkout's package has are made."""
-    from apsu_tpu_torch.core.nt import gen_ntt_primes
-    from apsu_tpu_torch.core.ntt import NttContext
-    from apsu_tpu_torch.ops import _build, roofline
-    from apsu_tpu_torch.ops import ntt as ntt_op
-    from apsu_tpu_torch.tools import cuda_ms
-
-    x = torch.zeros(1 << 16, dtype=torch.int32, device="cuda")
-    o = torch.empty_like(x)
-    idx, entry = x.get_device(), _build.lib().apsu_add_one
-    xp, op, n = x.data_ptr(), o.data_ptr(), x.numel()
-    s = torch.cuda.current_stream(idx).cuda_stream
-
-    def switch():
-        with torch.cuda.device(idx):
-            pass
-
-    pieces = {
-        "torch.add(x, 1)": lambda: torch.add(x, 1),
-        "torch.add(x, 1, out=o)": lambda: torch.add(x, 1, out=o),
-        "add_one(x)": lambda: roofline.add_one(x),
-        "add_one_cuda(x, o)": lambda: roofline.add_one_cuda(x, o),
-        "_build.launch": lambda: _build.launch("add_one", entry, idx, xp, op, n),
-        "ctypes entry": lambda: entry(xp, op, n, s),
-        "torch.empty_like(x)": lambda: torch.empty_like(x),
-        "current_stream().cuda_stream": lambda: torch.cuda.current_stream(idx).cuda_stream,
-        "raw stream": lambda: torch._C._cuda_getCurrentRawStream(idx),
-        "is_current_stream_capturing": torch.cuda.is_current_stream_capturing,
-        "torch.cuda.device enter+exit": switch,
-        "torch._C._cuda_getDevice": torch._C._cuda_getDevice,
-    }
-    split = in_turns({k: (lambda f=f: cuda_ms(f, reps)) for k, f in pieces.items()})
-
-    tb = NttContext(gen_ntt_primes([28, 27], 2 * 4096), 4096, "cuda")
-    y = torch.zeros((72, 5, 2, 2, 4096), dtype=torch.int32, device="cuda")
-    z = torch.empty_like(y)
-    ntt_entry = _build.lib().apsu_ntt
-    args = (y.data_ptr(), z.data_ptr(), tb.w_pl_u32.data_ptr(), tb.w_sh_u32.data_ptr(),
-            tb.p_u32.data_ptr(), tb.ninv_pl_u32.data_ptr(), tb.ninv_sh_u32.data_ptr(),
-            y.numel() // 4096, 2, tb.logn, 0)
-
-    def host_us(fn, calls=200):
-        def run():
-            fn()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                fn()
-            t1 = time.perf_counter()
-            torch.cuda.synchronize()
-            return (t1 - t0) / calls * 1e6
-        return run
-
-    host = in_turns({"ntt(y)": host_us(lambda: ntt_op.ntt(y, tb)),
-                     "_build.launch": host_us(lambda: _build.launch("ntt", ntt_entry, idx,
-                                                                    *args))})
-    rows = []
-    for L in (4, 7, 14):
-        for B in (64, 256):
-            w = torch.zeros((B, L, 8192), dtype=torch.int32, device="cuda")
-            eager = in_turns({"add_one(x)": lambda: cuda_ms(lambda: roofline.add_one(w), 200),
-                              "torch.add(x, 1)": lambda: cuda_ms(lambda: torch.add(w, 1), 200)})
-            rows.append({"L": L, "B": B, **{k: sum(r) / 2 for k, r in eager.items()}})
-            del w
-    return {"elems": n, "reps": reps, "ms": {k: sum(r) / 2 for k, r in split.items()},
-            "ntt_shape": list(y.shape), "ntt_host_us": {k: sum(r) / 2 for k, r in host.items()},
-            "eager_rows_ms": rows}
-
-
-def checkouts_in_turns(roots, argv) -> dict:
-    """The command ``python argv(root)`` run from this checkout and from
-    each of ``roots`` (another checkout's root), each in a process of its
-    own that imports its checkout's package, the processes in turns: each
-    checkout's readings (the last line of its output, as JSON), two."""
-    def run(root):
-        def once():
-            res = subprocess.run([sys.executable, *argv(root)], cwd=root, capture_output=True,
-                                 text=True, timeout=900)
-            if res.returncode != 0:
-                raise RuntimeError(f"{argv(root)} in {root} exited {res.returncode}:\n"
-                                   f"{res.stderr[-3000:]}")
-            out = json.loads(res.stdout.strip().splitlines()[-1])
-            if not Path(out.get("package", root)).resolve().is_relative_to(root):
-                raise RuntimeError(f"{argv(root)} in {root} imported {out['package']}")
-            return out
-        return once
-
-    return in_turns({str(root): run(root) for root in [ROOT, *map(Path.resolve, roots)]})
-
-
-def compare_roofline(sources) -> dict:
-    """Each given K9/K10 source, built alone and held against the plain
-    versions (K10 at ``ADD_LENGTHS`` with values that wrap and at 1 GiB; K9
-    every arm it takes at a ragged count and at the tool's block), then
-    timed in turns (``in_turns``) with the package's kernels: K10 streaming
-    1 GiB (16 launches a window, beside ``torch.add``), and at each
-    ``ntt4p_gl_ab`` row graph-replayed (beside ``torch.add``), K9 each arm
-    at the tool's block and 256 rounds, mont_mul also at 4x its elements.  Each build
-    reports its registers, spills, SASS ``CALL`` count and K9's
-    ``sass_per_step``.
-
-    A source is a ``roofline.cu`` variant (those in ``csrc/compare/``: it may
-    export only one of ``apsu_vpu_loop`` and ``apsu_add_one``, and
-    ``apsu_vpu_loop`` may refuse an arm or take the probes of
-    ``PROBE_OPS`` as op codes 4, 5) or the root of another checkout, whose
-    ``csrc/roofline.cu`` is built and whose package's launch path, eager
-    calls and ``ntt4p_gl_ab`` run in processes of their own, in turns with
-    this checkout's (``launch_split``, ``checkouts_in_turns``)."""
-    import ctypes
-
-    from apsu_tpu_torch.core.mod32 import from_u32
-    from apsu_tpu_torch.ops import _build, roofline
-    from apsu_tpu_torch.tools import graph_ms, vpu_roofline, window_ms
-
-    roots = [s.resolve() for s in sources if s.is_dir()]
-    sources = [s / "apsu_tpu_torch" / "csrc" / "roofline.cu" if s.is_dir() else s
-               for s in sources]
-    names = roofline.OPS + PROBE_OPS
-    own = "csrc/roofline.cu"
-    adds, loops = {}, {}
-    tree = _build.lib()
-    for src, lib, log in build_alone([_build.CSRC / "roofline.cu", *sources], "roofline"):
-        name = own if src == _build.CSRC / "roofline.cu" else str(src)
-        so = tree if name == own else ctypes.CDLL(str(lib))
-        if hasattr(so, "apsu_add_one"):
-            so.apsu_add_one.argtypes, so.apsu_add_one.restype = tree.apsu_add_one.argtypes, ctypes.c_int
-            adds[name] = so.apsu_add_one
-        if hasattr(so, "apsu_vpu_loop"):
-            so.apsu_vpu_loop.argtypes = tree.apsu_vpu_loop.argtypes
-            so.apsu_vpu_loop.restype = ctypes.c_int
-            loops[name] = so.apsu_vpu_loop
-        calls = sum(len(re.findall(r"^\s+/\*[0-9a-f]{4}\*/\s+CALL", f, re.M))
-                    for f in sass_functions(lib, "add_one|vpu_loop"))
-        emit({"compare_roofline_build": name, **ptxas_stats(log), "sass_calls": calls,
-              "sass_per_step": vpu_roofline.sass_per_step(lib, names) if name in loops else None})
-
-    def add(entry, x, out):
-        _build.launch("add_one", entry, x.get_device(), x.data_ptr(), out.data_ptr(), x.numel())
-
-    def loop(entry, x, out, code, outer):
-        _build.launch("vpu_loop", entry, x.get_device(), x.data_ptr(), out.data_ptr(), x.numel(),
-                      code, roofline.P, roofline.PNI, outer)
-
-    res = {"k10": {}, "k9": {}}
-    # K10 against its plain version, then timed
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(11)
-    for n in ADD_LENGTHS:
-        x = torch.randint(0, 1 << 32, (n,), dtype=torch.int64, device="cuda", generator=gen)
-        x[: min(n, 7)] = (1 << 32) - 1   # wraps to 0
-        x = x.to(torch.int32)
-        want = roofline.add_one_plain(x)
-        for name, entry in adds.items():
-            out = torch.full_like(x, 7)
-            add(entry, x, out)
-            if not torch.equal(out, want):
-                raise AssertionError(f"add_one {name} != plain at n={n}")
-    a = torch.randint(0, 1 << 30, (1 << 28,), dtype=torch.int32, device="cuda", generator=gen)
-    b = torch.empty_like(a)
-    want = roofline.add_one_plain(a)
-    for name, entry in adds.items():
-        b.zero_()
-        add(entry, a, b)
-        if not torch.equal(b, want):
-            raise AssertionError(f"add_one {name} != plain at 1 GiB")
-    del want
-    emit({"compare_roofline": "add_one checked", "lengths": list(ADD_LENGTHS) + [1 << 28],
-          "builds": list(adds)})
-
-    def stream(step):
-        def run():
-            return window_ms(lambda: [step(a, b) if i % 2 == 0 else step(b, a)
-                                      for i in range(16)])[1] / 16
-        return run
-
-    runs = {name: stream(lambda s, d, e=entry: add(e, s, d)) for name, entry in adds.items()}
-    runs["torch.add"] = stream(lambda s, d: torch.add(s, 1, out=d))
-    for run in runs.values():
-        run()
-    res["k10"]["1 GiB"] = {"bound_ms": 2 * a.numel() * 4 / HBM_BYTES_PER_S * 1e3,
-                           **turns_summary(in_turns(runs, trials=10), own)}
-    emit({"compare_roofline": "add_one 1 GiB", **res["k10"]["1 GiB"]})
-    del a, b
-    torch.cuda.empty_cache()
-    for L in (4, 7, 14):
-        for B in (64, 256):
-            x = torch.randint(0, 1 << 28, (B, L, 8192), dtype=torch.int32, device="cuda",
-                              generator=gen)
-            out = torch.empty_like(x)
-            graph = {name: (lambda e=entry: graph_ms(lambda: add(e, x, out), reps=32))
-                     for name, entry in adds.items()}
-            graph["torch.add"] = lambda: graph_ms(lambda: torch.add(x, 1, out=out), reps=32)
-            row = {"L": L, "B": B, "bytes": 2 * x.numel() * 4,
-                   "bound_ms": 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3,
-                   "graph": turns_summary(in_turns(graph, trials=5), own)}
-            res["k10"][f"L={L} B={B}"] = row
-            emit({"compare_roofline": "add_one row", **row})
-            del x, out
-
-    # K9 against its plain version, then timed
-    block = from_u32(np.random.default_rng(0).integers(1, 1 << 28, (8, 512, 128), np.uint64)
-                     .astype(np.uint32), "cuda")
-    big = from_u32(np.random.default_rng(1).integers(1, 1 << 28, (32, 512, 128), np.uint64)
-                   .astype(np.uint32), "cuda")
-    ragged = torch.randint(0, 1 << 32, (4 * 129 + 3,), dtype=torch.int64, device="cuda",
-                           generator=gen).to(torch.int32)
-    one = torch.zeros(1, dtype=torch.int32, device="cuda")
-    takes = {}
-    for name, entry in loops.items():
-        takes[name] = []
-        for code, op in enumerate(names):
-            err = entry(one.data_ptr(), one.data_ptr(), 1, code, roofline.P, roofline.PNI, 1,
-                        torch.cuda.current_stream().cuda_stream)
-            if err not in (0, 1):   # 1: cudaErrorInvalidValue, the arm is not in this source
-                _build.check(err, f"vpu_loop {name} {op}")
-            if err:
-                continue
-            takes[name].append(op)
-            for x, outer in [(ragged, 3), (block, 2)]:
-                plain = (roofline.vpu_loop_plain(x, op, outer) if op in roofline.OPS
-                         else probe_plain(x, op, outer))
-                got = torch.empty_like(x)
-                loop(entry, x, got, code, outer)
-                if not torch.equal(got, plain):
-                    raise AssertionError(f"vpu_loop {name} {op} != plain at n={x.numel()}")
-    emit({"compare_roofline": "vpu_loop checked", "arms_by_build": takes})
-    out = torch.empty_like(big)
-    for code, op in enumerate(names):
-        for label, x in [("tool block", block)] + ([("4x block", big)] if op == "mont_mul" else []):
-            runs = {name: (lambda e=entry, c=code, x=x: window_ms(
-                        lambda: loop(e, x, out[: x.shape[0]], c, 256))[1])
-                    for name, entry in loops.items() if op in takes[name]}
-            if not runs:
-                continue
-            for run in runs.values():
-                run()
-            steps = x.numel() * roofline.REPS * 256
-            row = {"arm": op, "shape": list(x.shape), "steps": steps,
-                   "bound_ms": (vpu_roofline.bound_ms(op, steps) if op in roofline.OPS
-                                else None),
-                   **turns_summary(in_turns(runs, trials=4), own if own in runs else next(iter(runs)))}
-            res["k9"][f"{op} {label}"] = row
-            emit({"compare_roofline": "vpu_loop", **row})
-    del block, big, out
-    torch.cuda.empty_cache()
-
-    # each checkout's launch path and ntt4p_gl_ab, in processes of their own
-    res["launch_split"] = checkouts_in_turns(
-        roots, lambda root: [str(ROOT / "chip_smoke.py"), "--launch-split-child", str(root)])
-    emit({"compare_roofline": "launch split", "by_checkout": res["launch_split"]})
-    tools = checkouts_in_turns(roots, lambda root: ["-m", "apsu_tpu_torch.tools.ntt4p_gl_ab"])
-    res["ntt4p_gl_ab"] = {
-        root: [[{k: row[k] for k in ("L", "B", "add_one_graph_ms", "add_one_eager_ms",
-                                     "torch_add_eager_ms")} for row in run["rows"]]
-               for run in runs]
-        for root, runs in tools.items()}
-    emit({"compare_roofline": "ntt4p_gl_ab", "by_checkout": res["ntt4p_gl_ab"]})
-    return res
 
 
 def psu_path(args, gen, name: str, ceilings: dict, sharded: bool = False,
@@ -2631,13 +1783,13 @@ def psu_path(args, gen, name: str, ceilings: dict, sharded: bool = False,
     stats = db.set_data(db_items)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    build_launches = all_launches()
+    build_launches = launch_counts()
     snd = Sender(params, DebugOprf(), rng=np.random.default_rng(args.seed + 2), device="cuda")
     recv = Receiver(params, db, rng=np.random.default_rng(args.seed + 3))
     reset_launches()
     res = run_psu(params, query, db_items, sender=snd, receiver=recv)
     torch.cuda.synchronize()
-    psu_launches = all_launches()
+    psu_launches = launch_counts()
     transferred, union = as_set(res.transferred), as_set(res.union)
     psu_ok = transferred == want and union == db_set | q_set and not transferred & db_set
     emit({"psu_path": name, "db_items": len(db_items), "query_items": len(query),
@@ -2700,8 +1852,6 @@ def psu_path(args, gen, name: str, ceilings: dict, sharded: bool = False,
         powers = rand_residues(pw_shape, base.primes, gen)
         evals = check_eval_dot(powers, cache, base, f"{name} warm query (DB cache)")
     glue = check_glue_calls(calls["glue"], f"{name} warm query", ceilings)
-    if args.compare_glue and name == "1M-2048-cmp":
-        compare_glue(args.compare_glue, calls["glue"], f"{name} warm query")
     if args.profile:
         profile_query(recv, req)
     out = {"launches": launches, "ntt": ntt_summary, kernel: evals, "glue": glue,
@@ -2748,8 +1898,6 @@ def mpc_path(args, gen) -> dict:
     and the kernels checked at those shapes afterwards."""
     from apsu_tpu_torch.api.protocol import run_psu_mpc
     from apsu_tpu_torch.core.params import PSUParams
-    from apsu_tpu_torch.ops import ntt as ntt_op
-    from apsu_tpu_torch.ops import polyeval
 
     name = "1M-2048-cmp"
     params = PSUParams.load_file(str(ROOT / "parameters" / f"{name}.json"))
@@ -2766,9 +1914,7 @@ def mpc_path(args, gen) -> dict:
     logger.setLevel(logging.DEBUG)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ntt_op.launches = 0
-    polyeval.dot_launches = 0
-    polyeval.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     try:
         with recording_kernels(calls):
@@ -2778,8 +1924,7 @@ def mpc_path(args, gen) -> dict:
         logger.removeHandler(records)
         logger.setLevel(level)
     wall = time.perf_counter() - t0
-    launches = {"ntt": ntt_op.launches, "eval_dot": polyeval.dot_launches,
-                "ps_inner": polyeval.launches}
+    launches = launch_counts()
     transferred, union = as_set(res.transferred), as_set(res.union)
     exact = (transferred == q_set - db_set and union == db_set | q_set
              and not transferred & db_set and len(union) == len(db_set) + len(q_set - db_set))
@@ -2962,8 +2107,6 @@ def db_lifecycle_path(args, gen) -> dict:
     from apsu_tpu_torch.core.params import PSUParams
     from apsu_tpu_torch.db.receiver_db import ReceiverDB
     from apsu_tpu_torch.mpc.oprf import DebugOprf
-    from apsu_tpu_torch.ops import ntt as ntt_op
-    from apsu_tpu_torch.ops import polyeval
 
     name = "1M-2048-com"
     params = PSUParams.load_file(str(ROOT / "parameters" / f"{name}.json"))
@@ -2988,7 +2131,7 @@ def db_lifecycle_path(args, gen) -> dict:
            "inserted": CHANGED_ITEMS, "inserted_on_fullest_slot": on_fullest,
            "removed": CHANGED_ITEMS, "query_items": len(query), "seconds": {}}
     sec = res["seconds"]
-    ntt_op.launches = polyeval.launches = polyeval.dot_launches = 0
+    reset_launches()
     with recording_kernels(calls, keep=False), \
             tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt-", dir=ROOT) as ckpt:
         db = ReceiverDB(params, DebugOprf(), loc_seed=LOC_SEED, device="cuda")
@@ -3090,8 +2233,8 @@ def db_lifecycle_path(args, gen) -> dict:
         if not equal:
             raise AssertionError("build_partition != a direct cache_range build")
         del placer, part, direct
-    launches = {"ntt": ntt_op.launches, "ps_inner": polyeval.launches,
-                "eval_dot": polyeval.dot_launches}
+    counted = launch_counts()
+    launches = {k: counted[k] for k in ("ntt", "ps_inner", "eval_dot")}
     res.update({"launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     emit(res)
     if launches["ntt"] == 0 or launches["ps_inner"] == 0 or launches["eval_dot"]:
@@ -3150,7 +2293,7 @@ def labeled_path(args, gen, ceilings) -> dict:
     stats = db.set_data(db_items, labels=labels)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    build_launches = all_launches()
+    build_launches = launch_counts()
     levels = {"eval_lvl": db.eval_lvl, "labeled_eval_level": db.labeled_eval_level(),
               "unlabeled_eval_level": db.eval_level()}
     emit({"labeled_path": name, "db_items": DB_ITEMS, "query_items": len(query),
@@ -3214,7 +2357,7 @@ def labeled_path(args, gen, ceilings) -> dict:
     if control[0]:
         raise AssertionError("the labels checked against another query's mask passed")
     if (per_query["eval_dot"] != 2 or launches["ntt"] == 0 or launches["ps_inner"]
-            or not all(launches[g] for g, *_ in GLUE_KERNELS)):
+            or not all(launches[g] for g in GLUE_NAMES)):
         raise AssertionError(f"the labeled path's launches are wrong: {launches}")
 
     ntt_summary = check_ntt_shapes(calls["ntt"], gen)
@@ -3251,7 +2394,7 @@ TRACE_TRIES = 3     # traces of a graphed query phase 15 takes before it fails
 
 def traced_kernels(run) -> dict:
     """The hand-written kernels that ``torch.profiler`` traced on the
-    device in ``run()``, by ``KERNEL_NAMES``: the second of two steps, the
+    device in ``run()``, by ``traced_names``: the second of two steps, the
     first a warm-up (a trace's first step can lose the records of its first
     kernels)."""
     from torch.autograd import DeviceType
@@ -3261,7 +2404,7 @@ def traced_kernels(run) -> dict:
 
     def ready(prof):
         events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        got.update({k: sum(e.count for e in events if k in e.key) for k in KERNEL_NAMES})
+        got.update({k: sum(e.count for e in events if k in e.key) for k in traced_names()})
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1), on_trace_ready=ready) as prof:
@@ -3347,14 +2490,16 @@ def programs_path(name, params, db, req, exact, seed, fresh=None) -> dict:
     walls = {"first_graph_query_s": first[2], "first_eager_query_s": eager0[2]}
     del got, first, eager0   # no response left to pin its segment below
 
-    names = [f"{mod.__name__.rsplit('.', 1)[1]}.{c}" for mod, c, _ in counts.COUNTERS]
+    names = [name for _, _, name, _ in counters()]
     launches = {}
     for how in ("graph", "eager"):
         before = counts.read()
         query(how, seed + 310)
         launches[how] = {n: v for n, v in zip(names, counts.since(before)) if v}
     prof = profile_query(Receiver(params, db, rng=np.random.default_rng(seed + 311)), req)
-    traced_eager = {k: launches["eager"].get(c, 0) for k, c in TRACED_COUNTERS.items()}
+    traced_eager = dict.fromkeys(traced_names(), 0)
+    for _, _, counter, kernel in counters():
+        traced_eager[kernel] += launches["eager"].get(counter, 0)
     traces = []
     while len(traces) < TRACE_TRIES and (not traces or traces[-1] != traced_eager):
         traces.append(traced_kernels(lambda: query("graph", seed + 312)))
@@ -3430,8 +2575,6 @@ def sharded_path(name, params, db, req, exact, seed, gen, ceilings) -> dict:
     is a check of the partition, not a deployment's."""
     from apsu_tpu_torch.api.parties import Receiver
     from apsu_tpu_torch.engine import programs
-    from apsu_tpu_torch.ops import ntt as ntt_op
-    from apsu_tpu_torch.ops import polyeval
     from apsu_tpu_torch.parallel.mesh import make_mesh
     from apsu_tpu_torch.parallel.runtime import ShardedReceiver
 
@@ -3444,8 +2587,7 @@ def sharded_path(name, params, db, req, exact, seed, gen, ceilings) -> dict:
         rng = np.random.default_rng(s)
         recv = (Receiver(params, db, rng=rng) if n is None
                 else ShardedReceiver(params, db, meshes[n], rng=rng))
-        ntt_op.launches = polyeval.launches = polyeval.dot_launches = 0
-        reset_glue_launches()
+        reset_launches()
         # the direct query runs eagerly, as the sharded one does (the mesh
         # path has no programs yet), so the overhead compares like with like
         with recording_kernels(calls, on=record), \
@@ -3456,8 +2598,7 @@ def sharded_path(name, params, db, req, exact, seed, gen, ceilings) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         if n is not None:
-            launches[n].append({"ntt": ntt_op.launches, "ps_inner": polyeval.launches,
-                                "eval_dot": polyeval.dot_launches, **glue_launches()})
+            launches[n].append(launch_counts())
         return resp, recv.last_mask, wall
 
     times = {"direct": [], SHARDS[0]: [], SHARDS[1]: []}
@@ -3502,11 +2643,11 @@ def sharded_path(name, params, db, req, exact, seed, gen, ceilings) -> dict:
         busy = sum(r1 > r0 for r0, r1 in meshes[n].row_ranges(rows))
         for c in launches[n]:
             if (c["ntt"] == 0 or c[kernel] < busy or c[other]
-                    or not all(c[g] for g, *_ in GLUE_KERNELS)):
+                    or not all(c[g] for g in GLUE_NAMES)):
                 raise AssertionError(f"{n}-shard launches are wrong ({name}): {c}")
 
     out = {"launches": {k: sum(c[k] for n in SHARDS for c in launches[n])
-                        for k in ("ntt", "ps_inner", "eval_dot", *glue_launches())},
+                        for k in ("ntt", "ps_inner", "eval_dot", *GLUE_NAMES)},
            "ntt": check_ntt_shapes(calls["ntt"], gen), kernel: []}
     emit({"sharded_ntt": out["ntt"], "path": name, "shards": SHARDS[1]})
     label = f"{name} {SHARDS[1]}-shard query (DB cache rows)"
@@ -3664,18 +2805,4 @@ def grid_path(args, gen) -> dict:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cli-child"]:   # the CLI processes of phases 9 and 13
         sys.exit(cli_child(sys.argv[2], sys.argv[3], sys.argv[4:]))
-    if sys.argv[1:2] == ["--profile-turns"]:
-        sys.exit(profile_turns(Path(sys.argv[2])))
-    if sys.argv[1:2] == ["--profile-child"]:   # profile_turns's checkouts
-        sys.path.insert(0, sys.argv[2])
-        import apsu_tpu_torch
-
-        print(json.dumps({"package": apsu_tpu_torch.__file__, **profile_child(0)}))
-        sys.exit(0)
-    if sys.argv[1:2] == ["--launch-split-child"]:   # compare_roofline's checkouts
-        sys.path.insert(0, sys.argv[2])
-        import apsu_tpu_torch
-
-        print(json.dumps({"package": apsu_tpu_torch.__file__, **launch_split()}))
-        sys.exit(0)
     sys.exit(main())

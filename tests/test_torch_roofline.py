@@ -1,7 +1,9 @@
 """Kernels 9 and 10 of the port (``ops/roofline.py``, plain versions on the
 CPU) against the reference tools' Pallas bodies in interpret mode, bit for bit
-(tolerance 0), plus ``mul_wide``, the wrappers' checks and the two measuring
-tools' output on the CPU.
+(tolerance 0), plus ``mul_wide``, the wrappers' checks, the two measuring
+tools' output on the CPU, and ``chip_smoke.py``'s launch counts and bounds
+(its counters are ``ops/counts.py``'s, its peaks and K2/K3 work the
+benchmark yardstick's).
 
 The reference's K9 bodies are closures inside ``tools/vpu_roofline.py:main``
 and cannot be imported, so they are rebuilt here from ``apsu_tpu.core.mod32``
@@ -260,34 +262,71 @@ def test_tool_defaults_are_the_reference_grid():
     assert sig["n"].default == 8192
 
 
-@pytest.mark.parametrize("trials", [1, 3])
-def test_in_turns_alternates_and_summarises_the_spread(trials):
-    """``chip_smoke.in_turns`` reads A, B, C, C, B, A once a trial, and
-    ``turns_summary`` gives each name's best, mean and the least and most
-    of its trials' differences from the name it is held against."""
+def _chip_smoke():
+    """``chip_smoke.py`` loaded by its path, as the card's runs import it."""
     import importlib.util
     from pathlib import Path
 
     path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke_turns", path)
+    spec = importlib.util.spec_from_file_location("chip_smoke_counts", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
 
-    order = []
 
-    def reader(name, base):
-        def read():
-            order.append(name)
-            return base + len(order)   # a drift of one a reading
-        return read
+def test_chip_smoke_reset_zeroes_every_counter():
+    """``chip_smoke.reset_launches`` zeroes every counter of
+    ``ops/counts.COUNTERS`` (M1's and K9/K10's too), and ``launch_counts``
+    reads each."""
+    from apsu_tpu_torch.ops import counts
 
-    turns = smoke.in_turns({"a": reader("a", 0.0), "b": reader("b", 10.0),
-                            "c": reader("c", 20.0)}, trials=trials)
-    assert order == ["a", "b", "c", "c", "b", "a"] * trials
-    assert [len(r) for r in turns.values()] == [2 * trials] * 3
-    s = smoke.turns_summary(turns, "a")
-    assert s["readings"] is turns and s["best"]["a"] == 1.0
-    assert s["mean"]["b"] == pytest.approx(sum(turns["b"]) / (2 * trials))
-    # in turns the drift falls on every name alike: each trial's difference
-    # is the names' own
-    assert s["minus_own"] == {"b": [10.0, 10.0], "c": [20.0, 20.0]}
+    smoke = _chip_smoke()
+    saved = counts.read()
+
+    def set_all():
+        for i, (mod, counter, _) in enumerate(counts.COUNTERS):
+            setattr(mod, counter, i + 1)
+
+    try:
+        set_all()
+        smoke.reset_launches()
+        assert counts.read() == [0] * len(saved)
+        set_all()
+        assert list(smoke.launch_counts().values()) == list(range(1, len(saved) + 1))
+    finally:
+        for (mod, counter, _), v in zip(counts.COUNTERS, saved):
+            setattr(mod, counter, v)
+
+
+def test_chip_smoke_traced_names_cover_every_counter():
+    """Each counter of ``ops/counts.COUNTERS`` has its ``kernels``-line name
+    and a traced ``__global__`` function that its pattern names, M1's
+    ``ctr_mod_kernel`` among them."""
+    from apsu_tpu_torch.ops import counts
+
+    smoke = _chip_smoke()
+    table = smoke.counters()
+    assert [(m, c) for m, c, _, _ in table] == [(m, c) for m, c, _ in counts.COUNTERS]
+    assert [name for _, _, name, _ in table] == [
+        "ntt", "ps_inner", "eval_dot", "vpu_loop", "add_one", "behz_lift", "mont_mac",
+        "behz_scaledown", "rns_divround", "behz_lift_general", "behz_scaledown_general",
+        "ctr_mod", "scale_add"]
+    traced = smoke.traced_names()
+    for (*_, pattern), (*_, kernel) in zip(counts.COUNTERS, table):
+        assert kernel in traced and f"{len(kernel)}{kernel}" in pattern
+    assert "ctr_mod_kernel" in traced and len(traced) == len(set(traced))
+
+
+@pytest.mark.parametrize("work, shapes, want", [
+    # K2 at 16M-4096's warm query; K3 at 1M-2048-cmp's (chip_smoke's own
+    # copies of the arithmetic gave these before it took the yardstick's)
+    pytest.param("ps_work", ((4, 44, 2, 4, 8192), (24, 29, 45, 4, 8192)),
+                 (1.2664294017910447, "bytes"), id="ps"),
+    pytest.param("dot_work", ((5, 72, 2, 2, 4096), (5, 15, 80, 2, 4096)),
+                 (0.061329958208955225, "bytes"), id="dot"),
+])
+def test_chip_smoke_bounds_come_from_the_yardstick(work, shapes, want):
+    """``chip_smoke.py``'s K2 and K3 bounds are the benchmark yardstick's
+    ``bound_s`` over its ``ps_work``/``dot_work``, to the last digit."""
+    smoke = _chip_smoke()
+    assert smoke.bound_ms(*getattr(smoke.yardstick, work)(*shapes)) == want
