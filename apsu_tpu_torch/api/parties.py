@@ -28,6 +28,7 @@ from apsu_tpu_torch.db.measured_levels import defer_relin, powers_at_eval, query
 from apsu_tpu_torch.db.receiver_db import ReceiverDB
 from apsu_tpu_torch.device import synchronize
 from apsu_tpu_torch.engine import programs
+from apsu_tpu_torch.engine.evaluator import wavefront_work
 from apsu_tpu_torch.engine.powers import plan_query
 from apsu_tpu_torch.hash.cuckoo import CuckooTable, cuckoo_insert
 from apsu_tpu_torch.hash.encoding import felts_from_items, items_from_felts
@@ -190,6 +191,7 @@ class Receiver:
             params.table_params.max_items_per_bin,
             params.query_params.ps_low_degree,
         )
+        self._wavefront = wavefront_work(self.plan)   # (products a bundle, groups)
         self._draws: Optional[ctr_mod.KeyStream] = None   # a CsRng's, where the DB lies
         self._last_mask: Optional[np.ndarray] = None      # in host memory
         self._mask_done = None   # a card mask's event after its copy to the host
@@ -283,7 +285,10 @@ class Receiver:
         drawn from ``rng`` after the mask.  The query's spans carry the next
         ordinal of this receiver as their query id (``utils/stopwatch.py``),
         and so do those that follow until the next query, such as the
-        response's copy to the host."""
+        response's copy to the host.  The counters ``powers.products`` and
+        ``powers.groups`` gain the power wavefront's ciphertext products
+        (over every bundle) and batched multiply + relinearize calls, from
+        the plan (``engine/evaluator.py:wavefront_work``)."""
         GLOBAL.query = next(self._ordinals)
         with GLOBAL.span("query"):
             return self._run_query(req, timings)
@@ -300,6 +305,8 @@ class Receiver:
         label_results = None
         t0 = time.perf_counter()
         with GLOBAL.span("program.powers"):
+            GLOBAL.count("powers.products", self._wavefront[0] * B)
+            GLOBAL.count("powers.groups", self._wavefront[1])
             if self.plan.uses_ps:
                 low_ntt, high_coeff = programs.ps_power_tensors(
                     bfv, datas, req.power_list, ql, self.plan, ksk, db.eval_lvl,

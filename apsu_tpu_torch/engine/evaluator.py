@@ -272,6 +272,18 @@ def _merge_schedules(low: PowerSchedule, high: PowerSchedule) -> PowerSchedule:
     )
 
 
+def wavefront_work(plan: QueryPlan) -> tuple:
+    """(products, groups) of the wavefront ``_run_schedule`` runs for
+    ``plan`` (a PS plan's low and high levels zipped by ``_merge_schedules``):
+    its ct×ct products in one bundle, and its batched multiply +
+    relinearize calls, ceil(len / ``MUL_CHUNK``) a level, each covering
+    every bundle."""
+    schedule = _merge_schedules(plan.low, plan.high) if plan.uses_ps else plan.low
+    products = sum(len(grp) for grp in schedule.levels)
+    groups = sum(-(-len(grp) // MUL_CHUNK) for grp in schedule.levels)
+    return products, groups
+
+
 def compute_ps_power_tensors(
     bfv: BfvContext,
     source_cts: Dict[int, Ciphertext],

@@ -17,7 +17,9 @@ or ``ps_matching``, with every PS row chunk in one program).
   reads the hand-written kernels the graph holds (``ops/counts.capture``,
   which raises if they differ from the eager call's launches) and replays
   it.  A later call copies its inputs into the buffers, replays, and adds
-  the graph's kernels to the wrappers' counts.
+  the graph's kernels to the wrappers' counts, and every kernel node of the
+  graph, PyTorch's too, to the counter ``program.<stage>.kernels``
+  (``utils/stopwatch.py:GLOBAL``; the stage is ``powers`` or ``eval``).
 * On the CPU the body runs directly on the same buffers.
 * Every call returns outputs that the caller owns (clones of the graph's).
 * A failed capture or replay raises; nothing falls back to eager dispatch.
@@ -87,15 +89,18 @@ def schedule_key(schedule) -> tuple:
 
 class Program:
     """One stage: ``body(bfv, *buffers, *static)`` on buffers that hold a
-    copy of each call's inputs, captured into a CUDA graph on the card."""
+    copy of each call's inputs, captured into a CUDA graph on the card;
+    ``stage`` names its kernel counter."""
 
-    def __init__(self, body, inputs, static, device):
+    def __init__(self, body, inputs, static, device, stage):
         self.body = body
         self.static = tuple(static)
         self.buffers = tuple(torch.empty(x.shape, dtype=x.dtype, device=device) for x in inputs)
         self.graph = None
         self.outs = None
         self.per_call = None   # the launches the graph holds, as counts.COUNTERS
+        self.kernels = None    # every kernel node the graph holds
+        self.counter = f"program.{stage}.kernels"
 
     def __call__(self, bfv, inputs) -> tuple:
         with GLOBAL.span("program.copy_in", nbytes=host_bytes(*inputs)):
@@ -106,7 +111,7 @@ class Program:
         with torch.cuda.device(bfv.device):
             if self.graph is None:
                 with GLOBAL.span("program.capture"):
-                    self.graph, outs, self.per_call = counts.capture(
+                    self.graph, outs, self.per_call, self.kernels = counts.capture(
                         lambda: self.body(bfv, *self.buffers, *self.static))
                 self.outs = _as_tuple(outs)
             self.replay()
@@ -116,6 +121,7 @@ class Program:
         with GLOBAL.span("program.replay"):
             self.graph.replay()
             counts.add(self.per_call)
+            GLOBAL.count(self.counter, self.kernels)
 
 
 def _as_tuple(out) -> tuple:
@@ -131,9 +137,11 @@ def full_key(bfv, kind_key: tuple, inputs, static=()) -> tuple:
             tuple(tensor_id(t) for t in static))
 
 
-def run(bfv, kind_key: tuple, body, inputs, static=(), own: bool = True) -> tuple:
+def run(bfv, kind_key: tuple, body, inputs, static=(), own: bool = True, *,
+        stage: str) -> tuple:
     """``body(bfv, *inputs, *static)`` as the program ``kind_key`` of
     ``bfv``: built on the first call for its ``full_key``, replayed after.
+    ``stage`` (``powers`` or ``eval``) names the program's kernel counter.
     ``inputs`` are copied in each call and may lie on the host; ``static``
     tensors are read by address.  The outputs are the caller's own, or with
     ``own`` False the program's, valid until its next call.  Under
@@ -143,7 +151,7 @@ def run(bfv, kind_key: tuple, body, inputs, static=(), own: bool = True) -> tupl
     full = full_key(bfv, kind_key, inputs, static)
     prog = bfv.programs.get(full)
     if prog is None:
-        prog = Program(body, inputs, static, bfv.device)
+        prog = Program(body, inputs, static, bfv.device, stage)
         outs = prog(bfv, inputs)   # a failed capture raises here: nothing is kept
         bfv.programs[full] = prog
     else:
@@ -197,7 +205,7 @@ def power_tensor(bfv, datas, power_list, src_lvl, schedule, ksk, eval_level, at_
                                     eval_level, at_eval=at_eval).movedim(0, 1).contiguous()
 
     ins = list(datas) + ([ksk] if ksk is not None else [])
-    return run(bfv, k, body, ins, own=False)[0]
+    return run(bfv, k, body, ins, own=False, stage="powers")[0]
 
 
 def ps_power_tensors(bfv, datas, power_list, src_lvl, plan, ksk, eval_level, at_eval,
@@ -220,7 +228,7 @@ def ps_power_tensors(bfv, datas, power_list, src_lvl, plan, ksk, eval_level, at_
                                         defer_relin=defer_relin)
 
     ins = list(datas) + ([ksk] if ksk is not None else [])
-    return run(bfv, k, body, ins, own=False)
+    return run(bfv, k, body, ins, own=False, stage="powers")
 
 
 def matching(bfv, powers, cache, const_slots, mask, eval_level) -> torch.Tensor:
@@ -230,7 +238,7 @@ def matching(bfv, powers, cache, const_slots, mask, eval_level) -> torch.Tensor:
     def body(bfv, powers, mask, cache, const_slots):
         return eval_matching_polys(bfv, powers, cache, const_slots, mask, eval_level).data
 
-    return run(bfv, k, body, [powers, mask], [cache, const_slots])[0]
+    return run(bfv, k, body, [powers, mask], [cache, const_slots], stage="eval")[0]
 
 
 def matching_labeled(bfv, powers, cache, const_slots, mask, label_cache, label0_slots, rho,
@@ -244,7 +252,7 @@ def matching_labeled(bfv, powers, cache, const_slots, mask, label_cache, label0_
         return res_m.data, res_l.data
 
     return run(bfv, k, body, [powers, mask, rho],
-               [cache, const_slots, label_cache, label0_slots])
+               [cache, const_slots, label_cache, label0_slots], stage="eval")
 
 
 def ps_matching(bfv, low, high, cache, const_polys, mask, ksk, rk_lvl, ps_low_degree,
@@ -264,4 +272,4 @@ def ps_matching(bfv, low, high, cache, const_polys, mask, ksk, rk_lvl, ps_low_de
                                       RelinKey(ksk, rk_lvl), ps_low_degree, result_level,
                                       max_degree, eval_level=lvl).data
 
-    return run(bfv, k, body, [low, high, mask, ksk], [cache, const_polys])[0]
+    return run(bfv, k, body, [low, high, mask, ksk], [cache, const_polys], stage="eval")[0]

@@ -6,7 +6,8 @@ while the stream is being captured into a CUDA graph (``_build.launch``).
 What a replayed graph launches is added here instead: ``capture`` reads the
 hand-written kernel nodes of the graph it captured, by the name of their
 ``__global__`` function, and ``add`` adds them once for each replay
-(``tools.graph_ms``, ``engine/programs.py``)."""
+(``tools.graph_ms``, ``engine/programs.py``).  It also returns how many
+kernel nodes the graph holds in all, PyTorch's among them."""
 
 from __future__ import annotations
 
@@ -113,13 +114,14 @@ def in_graph(names: list) -> list:
 
 def capture(fn, reps: int = 1):
     """``fn()``, ``reps`` times over, captured into one CUDA graph on the
-    current device: ``(graph, outs of the last call, per_replay)``.
+    current device: ``(graph, outs of the last call, per_replay, kernels)``.
 
     ``fn`` runs once eagerly on a side stream first, which fills every lazy
     cache and builds every kernel before the capture, and its launches are
     counted.  ``per_replay`` is what the graph holds, each counter's kernel
     nodes, and a replay launches exactly these: a capture whose kernels
-    differ from ``reps`` times the eager call's raises.  The graph is
+    differ from ``reps`` times the eager call's raises.  ``kernels`` is every
+    kernel node of the graph, hand-written and PyTorch's alike.  The graph is
     instantiated before it returns, so that its first replay only launches.
     Spans: ``capture.warmup`` (the eager call), ``capture.record`` (the
     Python pass under capture), ``capture.instantiate``."""
@@ -136,10 +138,11 @@ def capture(fn, reps: int = 1):
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             for _ in range(reps):
                 outs = fn()
-    per_replay = in_graph(kernel_names(graph))
+    names = kernel_names(graph)
+    per_replay = in_graph(names)
     if per_replay != eager:
         raise RuntimeError(f"a captured graph holds the launches {per_replay}, "
                            f"its eager calls made {eager} ({[c for _, c, _ in COUNTERS]})")
     with GLOBAL.span("capture.instantiate"):
         graph.instantiate()
-    return graph, outs, per_replay
+    return graph, outs, per_replay, len(names)

@@ -44,7 +44,7 @@ def graph_ms(fn, reps: int = 20) -> float:
     adds the hand-written kernels the graph holds to their counts
     (``ops/counts.capture``)."""
     fn()
-    graph, _, per_replay = counts.capture(fn, reps)
+    graph, _, per_replay, _ = counts.capture(fn, reps)
     graph.replay()
     ms = window_ms(graph.replay)[1]
     del graph

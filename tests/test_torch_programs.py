@@ -440,5 +440,5 @@ def test_capture_with_a_host_sync_raises():
     k = programs.key("host_sync")
     for _ in range(2):
         with pytest.raises(RuntimeError):
-            programs.run(bfv, k, body, [x])
+            programs.run(bfv, k, body, [x], stage="eval")
         assert not bfv.programs

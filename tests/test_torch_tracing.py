@@ -252,6 +252,9 @@ def test_the_byte_counters_count_the_tensors(ps_query, monkeypatch):
         "prepare.mask.words": recv.last_mask.size,
         "program.copy_in.bytes": sum(copied),
         "to_host.bytes": resp.results.nbytes,
+        # the wavefront: y^3 = y·y^2 and y^4 = y^2·y^2 in one bundle, one group
+        "powers.products": 2,
+        "powers.groups": 1,
     }
     assert len(copied) == 2 and copied[0] == request
     nbytes = {(_field(r, "name"), _field(r, "parent")): _field(r, "nbytes") for r in records}
